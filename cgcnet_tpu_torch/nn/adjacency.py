@@ -1,0 +1,55 @@
+"""Adjacency abstraction: one interface, two layouts.
+
+Stage 1 runs on the sparse cell graph (BSR blocks built from the padded
+ELL); the pooled stages run on small dense cluster graphs. Layers call
+``matvec`` / ``rowsum`` / ``quadform`` and never look at the layout.
+Port of ``cgcnet_tpu/nn/adjacency.py`` (EllAdjFactored's block path and
+DenseAdj); the ELL gather path comes with the GIN/GAT slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+
+from cgcnet_tpu_torch.ops.ell import bsr_matmul_precomp
+
+
+@dataclasses.dataclass
+class EllAdjFactored:
+    """Stage-1 adjacency A = diag(scale)·B_off + diag(self_w) with its
+    128x128 block values ``vals`` precomputed by B1 (both factors folded
+    in), so every matvec is one B2 launch. The factors themselves serve only
+    the backward (the transpose blocks), which comes with training."""
+
+    rowsum_: torch.Tensor    # [B, N]
+    blk_cols: torch.Tensor   # i32[B, R, M]
+    vals: torch.Tensor       # [B, R, M, T, T]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return bsr_matmul_precomp(self.vals, self.blk_cols, x)
+
+    def rowsum(self) -> torch.Tensor:
+        return self.rowsum_
+
+    def quadform(self, s: torch.Tensor) -> torch.Tensor:
+        return torch.bmm(s.transpose(1, 2), self.matvec(s))
+
+
+@dataclasses.dataclass
+class DenseAdj:
+    adj: torch.Tensor        # [B, N, N]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.bmm(self.adj.to(x.dtype), x)
+
+    def rowsum(self) -> torch.Tensor:
+        return torch.sum(self.adj, dim=-1)
+
+    def quadform(self, s: torch.Tensor) -> torch.Tensor:
+        return torch.bmm(s.transpose(1, 2), self.matvec(s))
+
+
+Adjacency = Union[EllAdjFactored, DenseAdj]
