@@ -8,7 +8,9 @@ function that the CPU path runs. The JAX package stays the reference; this
 package imports nothing from it.
 
 Ported so far: the serving path (``cli/predict.py``: dataset, loader, eval
-forward of the canonical SAGE/JK/norm_adj model, image-level metric).
+forward of the canonical SAGE/JK/norm_adj model, image-level metric) and the
+training path (``cli/train.py``: training-mode forward and backward, torch
+optimizers with StepLR, ``Trainer`` with validation, checkpoints, resume).
 """
 
 from cgcnet_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig

@@ -67,6 +67,10 @@ class CellGraph:
         """[B, N] node validity mask."""
         return node_mask(self.n_nodes, self.capacity, dtype)
 
+    def num_edges(self) -> torch.Tensor:
+        """Total real edge count in the batch (i32 scalar on the device)."""
+        return torch.sum(self.nbr_mask).to(torch.int32)
+
     def to(self, device, non_blocking: bool = False) -> "CellGraph":
         """Copy every tensor field to ``device``."""
         return CellGraph(

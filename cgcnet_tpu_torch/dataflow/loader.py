@@ -33,22 +33,39 @@ from cgcnet_tpu_torch.dataflow.dataset import (
 
 
 class GraphLoader:
-    """Iterate device-resident CellGraph batches, one epoch at a time."""
+    """Iterate device-resident CellGraph batches, one epoch at a time.
+
+    Batches go to the CUDA device unless ``device`` names another (the
+    tests pass ``device="cpu"``). ``drop_last`` drops the ragged final
+    batch (training); ``dynamic_buckets`` is not ported yet and raises."""
 
     def __init__(
         self,
         dataset: NucleiGraphDataset,
         batch_size: int,
         *,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         shuffle: bool = True,
         num_workers: int = 0,
+        drop_last: bool = False,
         seed: int = 0,
+        dynamic_buckets: bool = False,
     ):
+        if dynamic_buckets:
+            raise NotImplementedError(
+                "data.dynamic_buckets is not ported yet (remaining host code): "
+                "batches pad to the dataset capacity"
+            )
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "GraphLoader: no CUDA device — pass device='cpu' to load for "
+                "the CPU"
+            )
         self.dataset = dataset
         self.batch_size = batch_size
-        self.device = torch.device(device)
         self.shuffle = shuffle
+        self.drop_last = drop_last
         # 0 = auto: one worker per usable core (the CPU affinity set, not
         # os.cpu_count()) — the native per-patch build is GIL-free
         if num_workers <= 0:
@@ -70,6 +87,10 @@ class GraphLoader:
         if self.shuffle:
             np.random.default_rng((self.seed, epoch)).shuffle(idx)
         return idx
+
+    def batches_per_epoch(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def build_batch(self, idxs, epoch: int) -> dict[str, np.ndarray]:
         """Collated numpy batch (with BSR metadata) of dataset items
@@ -123,6 +144,8 @@ class GraphLoader:
         """Yield the batches of ``epoch`` (the epoch selects the sampling
         stream, the analog of the reference's set_epoch)."""
         order = self._epoch_order(epoch)
+        if self.drop_last:
+            order = order[: (len(order) // self.batch_size) * self.batch_size]
         batches = [
             order[i : i + self.batch_size]
             for i in range(0, len(order), self.batch_size)

@@ -1,12 +1,13 @@
 """GNN block and DiffPool (reference ``GNN_Module`` model/network.py:57-125
-and ``_diff_pool`` model/network.py:194-208), eval mode.
+and ``_diff_pool`` model/network.py:194-208).
 
-Port of the serving branches of ``cgcnet_tpu/nn/blocks.py``: the per-block
+Port of ``cgcnet_tpu/nn/blocks.py`` for SAGE + relu + BN: the per-block
 conv steps and tails, the paired (embed, pool) blocks that share one
 aggregation per layer, the dual-stream tail, the BN-folded assign tails
-(``finish_folded`` and the fused ``finish_folded_pre``, which is B4), and
-the DiffPool contractions. Batch statistics, running updates and every
-backward come with training.
+(``finish_folded`` and the fused ``finish_folded_pre``: B4 in eval mode,
+B3 + B4 forward and B5 backward in training) and the DiffPool
+contractions. Training mode follows the modules' ``training`` flag: BN
+normalizes with batch moments and updates its running moments.
 """
 
 from __future__ import annotations
@@ -21,9 +22,12 @@ from cgcnet_tpu_torch.nn.layers import (
     SAGEConv,
     TorchBatchNorm,
     TorchLinear,
-    l2_normalize,
+    batch_moments,
 )
-from cgcnet_tpu_torch.ops.assign_head import assign_head_softmax_pre
+from cgcnet_tpu_torch.ops.assign_head import (
+    AssignHeadSoftmaxPre,
+    AssignTailTrain,
+)
 
 
 class GNNBlock(nn.Module):
@@ -31,8 +35,9 @@ class GNNBlock(nn.Module):
     outputs; ``use_lin`` (pooling blocks) maps the concat to
     ``embedding_dim`` with bn3's affine folded into that lin.
 
-    The configuration this slice serves fixes relu, BN and the folded tail
-    (``CGCNet`` refuses the others)."""
+    The ported configuration fixes relu, BN and the folded tail (``CGCNet``
+    refuses the others). ``masked_bn``: BN batch statistics over real rows
+    only."""
 
     def __init__(
         self,
@@ -42,9 +47,11 @@ class GNNBlock(nn.Module):
         *,
         use_bias: bool = True,
         use_lin: bool = True,
+        masked_bn: bool = True,
     ):
         super().__init__()
         self.hidden_dim = hidden_dim
+        self.masked_bn = masked_bn
         self.gcn1 = SAGEConv(input_dim, hidden_dim, use_bias)
         self.gcn2 = SAGEConv(hidden_dim, hidden_dim, use_bias)
         self.gcn3 = SAGEConv(hidden_dim, embedding_dim, use_bias)
@@ -78,7 +85,9 @@ class GNNBlock(nn.Module):
         if raw:
             return conv(x, adj, mask, agg=agg, pre_normalize=True)
         h = torch.relu(conv(x, adj, mask, agg=agg))
-        return self.bn(i)(h) if apply_bn else h
+        if not apply_bn:
+            return h
+        return self.bn(i)(h, mask if self.masked_bn else None)
 
     def finish_folded_pre(
         self,
@@ -88,10 +97,10 @@ class GNNBlock(nn.Module):
         n_nodes: torch.Tensor,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Fused assign tail: ``p`` is conv3's raw lin output. L2-normalize,
-        relu, the BN-folded lin and the masked softmax are one B4 launch.
-        Returns (S, S^T). relu's positive homogeneity makes this exact:
-        relu(l2norm(p)) == rnorm * relu(p)."""
-        inv, shift = self.bn3.folded_affine()
+        relu, the BN-folded lin and the masked softmax are one B4 launch; in
+        training B3 computes bn3's batch statistics first and the backward
+        is one B5 launch. Returns (S, S^T), S^T a view. relu's positive
+        homogeneity makes this exact: relu(l2norm(p)) == rnorm * relu(p)."""
         split = x1.shape[-1] + x2.shape[-1]
         k = self.lin.kernel()
         k12, k3 = k[:split], k[split:]
@@ -99,10 +108,25 @@ class GNNBlock(nn.Module):
             self.lin.bias if self.lin.bias is not None
             else torch.zeros(k.shape[1], device=k.device)
         )
+        x12 = torch.cat([x1, x2], dim=-1)
+        if self.training:
+            # masked_bn: statistics over real rows; otherwise every row
+            # counts (padded rows of h are zero, only the divisor changes)
+            n = (
+                torch.sum(n_nodes).float() if self.masked_bn
+                else torch.tensor(float(p.shape[0] * p.shape[1]), device=p.device)
+            )
+            s, mean, var = AssignTailTrain.apply(
+                x12, p, k12, k3, lin_bias, self.bn3.weight, self.bn3.bias,
+                n_nodes, n, self.bn3.eps,
+            )
+            self.bn3.update_running(mean, var, n)
+            return s, s.transpose(1, 2)
+        inv, shift = self.bn3.affine(self.bn3.running_mean, self.bn3.running_var)
         k3f = inv[:, None] * k3
         const = shift @ k3 + lin_bias
-        x12 = torch.cat([x1, x2], dim=-1)
-        return assign_head_softmax_pre(x12, p, k12, k3f, const, n_nodes)
+        s = AssignHeadSoftmaxPre.apply(x12, p, k12, k3f, const, n_nodes)
+        return s, s.transpose(1, 2)
 
     def finish_folded(
         self,
@@ -112,8 +136,12 @@ class GNNBlock(nn.Module):
         mask: Optional[torch.Tensor],
     ) -> torch.Tensor:
         """``bn3 -> concat -> mask -> lin -> mask`` with bn3's affine folded
-        into the lin kernel: concat(x1, x2) @ K12 + h3a @ (inv*K3) + const."""
-        inv, shift = self.bn3.folded_affine()
+        into the lin kernel: concat(x1, x2) @ K12 + h3a @ (inv*K3) + const
+        (bn3's batch moments of ``h3a`` in training)."""
+        mean, var, n = self.bn3.moments(h3a, mask if self.masked_bn else None)
+        if self.training:
+            self.bn3.update_running(mean, var, n)
+        inv, shift = self.bn3.affine(mean, var)
         split = x1.shape[-1] + x2.shape[-1]
         k = self.lin.kernel()
         k12, k3 = k[:split], k[split:]
@@ -184,13 +212,49 @@ def _dual_lin(
     return out
 
 
+def _half_norms(c32: torch.Tensor, f: int):
+    a, b = c32[..., :f], c32[..., f:]
+    na = torch.clamp_min(torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True)), 1e-12)
+    nb = torch.clamp_min(torch.sqrt(torch.sum(b * b, dim=-1, keepdim=True)), 1e-12)
+    return a, b, na, nb
+
+
+class DualL2Norm(torch.autograd.Function):
+    """Row L2-normalize each half of a [..., 2F] dual-stream concat with f32
+    sums of squares, and the JAX package's hand-written backward
+    d(a/na) = g/na - a * (a.g)/na^3 per half. On a row whose norm is
+    clamped at 1e-12 (padded rows are all zero) the second term is zeroed:
+    the clamp has zero derivative there, where autograd of sqrt gives NaN."""
+
+    @staticmethod
+    def forward(ctx, cat, f):
+        a, b, na, nb = _half_norms(cat.float(), f)
+        ctx.save_for_backward(cat)
+        ctx.f = f
+        return torch.cat([a / na, b / nb], dim=-1).to(cat.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (cat,) = ctx.saved_tensors
+        f = ctx.f
+        a, b, na, nb = _half_norms(cat.float(), f)
+        g32 = g.float()
+        ga, gb = g32[..., :f], g32[..., f:]
+        zero = torch.zeros((), device=g.device)
+        ra = torch.where(
+            na > 1e-12, torch.sum(a * ga, dim=-1, keepdim=True) / (na * na * na), zero
+        )
+        rb = torch.where(
+            nb > 1e-12, torch.sum(b * gb, dim=-1, keepdim=True) / (nb * nb * nb), zero
+        )
+        d = torch.cat([ga / na - a * ra, gb / nb - b * rb], dim=-1)
+        return d.to(cat.dtype), None
+
+
 def dual_l2norm_2d(cat: torch.Tensor, f: int) -> torch.Tensor:
-    """Row L2-normalize each half of a [..., 2F] dual-stream concat, with
-    f32 sums of squares (forward of the JAX package's custom-VJP op)."""
-    return torch.cat(
-        [l2_normalize(cat[..., :f].float()), l2_normalize(cat[..., f:].float())],
-        dim=-1,
-    ).to(cat.dtype)
+    """Row L2-normalize each half of a [..., 2F] dual-stream concat
+    (:class:`DualL2Norm`)."""
+    return DualL2Norm.apply(cat, f)
 
 
 def _dual_tail(
@@ -202,7 +266,9 @@ def _dual_tail(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """l2norm -> mask -> relu -> BN for an equal-width (embed, pool) conv pair
     on the concatenated stream; the per-stream math is that of the solo
-    ``conv_step`` chains. Returns (cat, e_half, p_half)."""
+    ``conv_step`` chains. In training one two-pass moments computation over
+    the concatenated channels normalizes both streams and each block's BN
+    gets its half as the running update. Returns (cat, e_half, p_half)."""
     f = cat.shape[-1] // 2
     dt = cat.dtype
     h = dual_l2norm_2d(cat, f)
@@ -210,8 +276,13 @@ def _dual_tail(
         h = h * mask[..., None].to(dt)
     h = torch.relu(h)
     be, bp = e_blk.bn(i), p_blk.bn(i)
-    mean = torch.cat([be.running_mean, bp.running_mean])
-    var = torch.cat([be.running_var, bp.running_var])
+    if e_blk.training:
+        mean, var, n = batch_moments(h, mask if e_blk.masked_bn else None)
+        be.update_running(mean[:f], var[:f], n)
+        bp.update_running(mean[f:], var[f:], n)
+    else:
+        mean = torch.cat([be.running_mean, bp.running_mean])
+        var = torch.cat([be.running_var, bp.running_var])
     scale = torch.cat([be.weight, bp.weight])
     bias = torch.cat([be.bias, bp.bias])
     inv = torch.rsqrt(var + be.eps) * scale
@@ -315,5 +386,7 @@ def diff_pool_from_s(
     s: torch.Tensor,    # [B, N, C]
     s_t: torch.Tensor,  # [B, C, N] (same values)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """DiffPool contractions for the fused head's dual-layout S."""
+    """DiffPool contractions for the fused head's dual-layout S. The
+    backward is autograd's: the S^T view routes d(S^T) onto S, which gives
+    ``_contract_dual_pair``'s ds = [x | A S] @ [ct_x | ct_adj]^T."""
     return contract_dual_pair(s_t, x, adj.matvec(s))

@@ -1,4 +1,4 @@
-"""Graph convolution, linear and normalization layers (eval mode).
+"""Graph convolution, linear and normalization layers.
 
 Port of ``cgcnet_tpu/nn/layers.py`` with the same numerical contracts
 (PyG 1.2.1 ``DenseSAGEConv`` with normalize=True, torch ``BatchNorm1d``
@@ -85,10 +85,38 @@ def l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return (x32 / torch.clamp_min(norm, 1e-12)).to(x.dtype)
 
 
+def batch_moments(
+    x: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean[C], biased var[C], n) of ``x`` [..., C] over its rows in f32,
+    two-pass; with ``mask`` (row weights) over the masked rows, n clamped
+    to at least 1."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    if mask is None:
+        n = torch.tensor(float(xf[..., 0].numel()), device=x.device)
+        mean = torch.mean(xf, dim=axes)
+        return mean, torch.mean(torch.square(xf - mean), dim=axes), n
+    m = torch.broadcast_to(mask.float(), x.shape[:-1])
+    n = torch.clamp_min(torch.sum(m), 1.0)
+    m = m[..., None]
+    mean = torch.sum(xf * m, dim=axes) / n
+    return mean, torch.sum(torch.square(xf - mean) * m, dim=axes) / n, n
+
+
 class TorchBatchNorm(nn.Module):
-    """BatchNorm1d over [..., C] rows, eval mode: normalizes with the
-    running moments (torch buffers ``running_mean``/``running_var``, eps
-    1e-5). Batch statistics and running updates come with training."""
+    """BatchNorm1d with torch semantics over [..., C] rows: biased variance
+    for normalizing, unbiased (by n/(n-1)) for the running update, momentum
+    0.1, eps 1e-5 (torch buffers ``running_mean``/``running_var``).
+
+    ``mask`` (row weights, broadcastable to the row axes) restricts the
+    batch statistics to real nodes (``model.masked_bn``); without it the
+    statistics run over every row, padded ones included (the reference's
+    quirk). ``moments``/``affine`` expose the statistics without applying
+    them, so a following linear can fold the affine into its kernel; in
+    training every caller of ``moments`` feeds them to ``update_running``."""
+
+    momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -98,12 +126,41 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def folded_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def moments(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+    ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """(mean[C], var[C], n) that normalize ``x``: the running moments and
+        n None in eval mode; in training the batch moments (f32, two-pass
+        biased variance) over n rows. Changes no state."""
+        if not self.training:
+            return self.running_mean, self.running_var, None
+        return batch_moments(x, mask)
+
+    def update_running(
+        self, mean: torch.Tensor, var: torch.Tensor, n: torch.Tensor
+    ) -> None:
+        """Running-moment update from batch moments over ``n`` rows (also
+        fed by the fused assign tail, which computes its own moments)."""
+        with torch.no_grad():
+            n = torch.clamp_min(torch.as_tensor(n, dtype=torch.float32), 1.0)
+            unbiased = var * n / torch.clamp_min(n - 1.0, 1.0)
+            m = self.momentum
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+
+    def affine(
+        self, mean: torch.Tensor, var: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
         """BN as x*inv + shift (f32): inv = rsqrt(var+eps)*scale,
         shift = bias - mean*inv."""
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return inv, self.bias - self.running_mean * inv
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return inv, self.bias - mean * inv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean) * inv + self.bias).to(x.dtype)
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        mean, var, n = self.moments(x, mask)
+        if self.training:
+            self.update_running(mean, var, n)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * inv + self.bias).to(x.dtype)

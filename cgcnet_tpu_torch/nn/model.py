@@ -1,16 +1,17 @@
-"""CGCNet — the hierarchical soft-pooling graph classifier (eval forward).
+"""CGCNet — the hierarchical soft-pooling graph classifier.
 
 Port of ``cgcnet_tpu/nn/model.py`` (reference ``SoftPoolingGcnEncoder``,
 model/network.py:127-291): 3 embedding GNN blocks + 2 pooling GNN blocks +
 2 DiffPool stages + per-stage max readout + MLP head. Stage 1 runs on the
 sparse cell graph through the BSR kernels (B1 builds A's blocks once per
-batch, B2 runs every matvec) and the fused assign head (B4); stages 2-3 are
-dense batched matmuls.
+batch, B2 runs every matvec) and the fused assign head (B4; in training
+B3 and B5 too); stages 2-3 are dense batched matmuls.
 
-This slice serves: the path is the JAX package's canonical one (SAGE, relu,
-BN, JK, ``fold_assign_tail`` and the fused "pre" assign head, which needs a
-batch with BSR metadata). Training, GIN/GAT and the gather path for batches
-without metadata are not ported yet and raise.
+The path is the JAX package's canonical one (SAGE, relu, BN, JK,
+``fold_assign_tail`` and the fused "pre" assign head, which needs a batch
+with BSR metadata), in eval and training mode (``model.train()``: BN batch
+statistics, head dropout). GIN/GAT and the gather path for batches without
+metadata are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from cgcnet_tpu_torch.config import ModelConfig
@@ -48,7 +50,9 @@ def make_stage1_adj(
     graph: CellGraph, cfg: ModelConfig, dtype: torch.dtype
 ) -> EllAdjFactored:
     """Stage-1 adjacency A = diag(scale)·B_off + diag(self_w) with its BSR
-    blocks built once (B1); the self weight folds into ELL slot 0."""
+    blocks built once (B1); the self weight folds into ELL slot 0. With
+    gradients enabled a second B1 launch builds the binary blocks of
+    B_off^T from the transpose tables, for the backward."""
     if graph.blk_cols is None:
         raise ValueError(
             "batch carries no BSR block metadata (blk_cols): the gather path "
@@ -76,8 +80,21 @@ def make_stage1_adj(
     vals = bsr_build_blocks(
         graph.nbr, w_fwd, graph.blk_cols, graph.blk_mask, dtype
     )
+    vals_t = None
+    if torch.is_grad_enabled():
+        if graph.nbr_t is None or graph.blk_cols_t is None:
+            raise ValueError(
+                "a backward through stage 1 needs the transpose tables "
+                "(nbr_t, blk_cols_t) the loader builds"
+            )
+        off_t = graph.nbr_t_mask * (graph.nbr_t != row)
+        vals_t = bsr_build_blocks(
+            graph.nbr_t, off_t, graph.blk_cols_t, graph.blk_mask_t, dtype
+        )
     return EllAdjFactored(
-        rowsum_=rowsum.to(dtype), blk_cols=graph.blk_cols, vals=vals
+        rowsum_=rowsum.to(dtype), blk_cols=graph.blk_cols, vals=vals,
+        scale=scale.to(dtype), self_w=self_w.to(dtype),
+        blk_cols_t=graph.blk_cols_t, vals_t=vals_t,
     )
 
 
@@ -93,8 +110,10 @@ def masked_max_readout(
 
 
 class CGCNet(nn.Module):
-    """Hierarchical cell-graph classifier; ``forward(graph)`` in eval mode
-    returns f32 logits [B, num_classes]."""
+    """Hierarchical cell-graph classifier; ``forward(graph)`` returns f32
+    logits [B, num_classes]. In training mode BN uses batch statistics and
+    updates its running moments, and the head applies dropout with keep
+    masks drawn from ``generator`` (a generator on the batch's device)."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -112,7 +131,7 @@ class CGCNet(nn.Module):
                 "not ported yet: "
                 + ", ".join(f"model.{k}={getattr(cfg, k)!r}"
                             for k, bad in unported.items() if bad)
-                + " (this slice serves SAGE, relu, BN and the fused 'pre' "
+                + " (the port runs SAGE, relu, BN and the fused 'pre' "
                 "assign head on the BSR path)"
             )
         self.cfg = cfg
@@ -121,7 +140,8 @@ class CGCNet(nn.Module):
         in1, in2, in3 = c.stage_input_dims
 
         def block(in_dim, hidden, emb, lin):
-            return GNNBlock(in_dim, hidden, emb, use_bias=c.bias, use_lin=lin)
+            return GNNBlock(in_dim, hidden, emb, use_bias=c.bias, use_lin=lin,
+                            masked_bn=c.masked_bn)
 
         self.embed1 = block(in1, c.hidden_dim, c.embedding_dim, False)
         self.pool1 = block(in1, c.assign_hidden_dim, assign1, True)
@@ -147,11 +167,9 @@ class CGCNet(nn.Module):
             if isinstance(mod, (TorchLinear, BiLSTMParams)):
                 mod.reset_parameters(generator)
 
-    def forward(self, graph: CellGraph) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training is not ported yet: call model.eval() to serve"
-            )
+    def forward(
+        self, graph: CellGraph, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         c = self.cfg
         if graph.capacity % 128:
             raise ValueError(
@@ -198,5 +216,24 @@ class CGCNet(nn.Module):
         # ---- head (f32 whatever the compute dtype) ----
         h = torch.cat(outs, dim=-1).float()
         for name in self.pred_names:
-            h = torch.relu(getattr(self, name)(h))  # dropout: identity in eval
+            h = torch.relu(getattr(self, name)(h))
+            if self.training and c.drop_out > 0:
+                h = dropout(h, c.drop_out, generator)
         return self.pred_out(h).float()
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout (flax ``Dropout``): keep with probability 1-rate and
+    scale kept values by 1/(1-rate). The keep mask is drawn from
+    ``generator`` (F.dropout takes none)."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross entropy (reference F.cross_entropy,
+    model/network.py:289)."""
+    return F.cross_entropy(logits.float(), labels.long())

@@ -43,6 +43,10 @@ _SIGNATURES = {
     # x12, p, k12, k3f, const, n_nodes, rnorm, logits, s,
     # B, N, F12, C, dtype, device, stream
     "cgc_assign_head_pre": [_P] * 9 + [_I] * 6 + [_P],
+    # p, n_nodes, partial, out, B, N, C, tile_rows, dtype, device, stream
+    "cgc_l2relu_stats": [_P] * 4 + [_I] * 6 + [_P],
+    # p, dh, u, w, n_nodes, dp, B, N, C, dtype, device, stream
+    "cgc_assign_tail_bwd": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

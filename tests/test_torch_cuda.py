@@ -1,5 +1,6 @@
-"""PyTorch port, card only: each hand-written CUDA kernel (B1, B2, B4)
-against its plain PyTorch version on the same CUDA tensors, at small shapes.
+"""PyTorch port, card only: each hand-written CUDA kernel (B1, B2, B3, B4,
+B5) against its plain PyTorch version on the same CUDA tensors, and the
+backward Functions around them against the CPU, at small shapes.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch; skips without a CUDA device. On the card:
@@ -7,9 +8,10 @@ only PyTorch; skips without a CUDA device. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances are fractions of max|plain|: f32 — B1 exact (same f32 sums in
-the same slot order), B2 1e-4, B4 1e-5 (sums in another order); bf16 — the
-two roundings of the stored result may land one bf16 step apart, up to
-2^-7 of the value, so 2^-6.
+the same slot order), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4 (sums in another
+order); bf16 — the two roundings of the stored result may land one bf16
+step apart, up to 2^-7 of the value, so 2^-6. Gradients, card vs CPU:
+1e-4 of max|grad| (f32 sums in another order through the same formulas).
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from cgcnet_tpu_torch.ops import assign_head as ah
 from cgcnet_tpu_torch.ops import bsr
+from cgcnet_tpu_torch.ops.ell import bsr_matmul_precomp
 from cgcnet_tpu_torch.ops.knn import radius_knn_np
 
 pytestmark = pytest.mark.cuda
@@ -97,3 +100,92 @@ def test_kernels_match_plain(device, dtype):
     assert torch.equal(s_t, s.transpose(1, 2))
     for bi, nn in enumerate(n_nodes.tolist()):
         assert not s[bi, nn:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_kernels_match_plain(device, dtype):
+    """B3 and B5 at a C that is no multiple of 128, with rows past n_nodes
+    (where p is not zero) and an all-zero row."""
+    tol_stats = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    tol_bwd = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    gen = torch.Generator(device=device).manual_seed(1)
+    c = 204
+    n_nodes = torch.tensor([1024 - 37, 517], dtype=torch.int32, device=device)
+    p = torch.randn(2, 1024, c, device=device, generator=gen).to(dtype)
+    p[0, 3] = 0
+    launches = ah.l2relu_stats.launches
+    ssum, ssq = ah.l2relu_stats(p, n_nodes)
+    assert ah.l2relu_stats.launches == launches + 1
+    rsum, rsq = ah.l2relu_stats_plain(p, n_nodes)
+    _close(ssum, rsum, tol_stats)
+    _close(ssq, rsq, tol_stats)
+    # fixed reduction order: the same bits run to run
+    again = ah.l2relu_stats(p, n_nodes)
+    assert torch.equal(again[0], ssum) and torch.equal(again[1], ssq)
+    rows = torch.arange(1024, device=device)[None, :] < n_nodes.long()[:, None]
+    dh = (torch.randn(2, 1024, c, device=device, generator=gen)
+          * rows[..., None]).to(dtype)
+    u = torch.randn(c, device=device, generator=gen)
+    w = torch.randn(c, device=device, generator=gen)
+    launches = ah.assign_tail_bwd.launches
+    dp = ah.assign_tail_bwd(p, dh, u, w, n_nodes)
+    assert ah.assign_tail_bwd.launches == launches + 1
+    assert dp.dtype == dtype
+    _close(dp, ah.assign_tail_bwd_plain(p, dh, u, w, n_nodes), tol_bwd)
+    assert not dp[~rows].any()
+
+
+def _grads_close(outs_gpu, outs_cpu):
+    for g, r in zip(outs_gpu, outs_cpu):
+        _close(g.cpu(), r, 1e-4)
+
+
+def test_backward_matches_cpu(device):
+    """AssignTailTrain (B3 + B4 forward, B5 backward) and BsrMatmulPrecomp
+    (B2 both ways) on the card against the same Functions on the CPU."""
+    rng = np.random.default_rng(2)
+    b, n, f12, c = 2, 1024, 16, 204
+    n_nodes = np.array([1000, 613], np.int32)
+    mask = (np.arange(n)[None] < n_nodes[:, None]).astype(np.float32)
+    arrays = [
+        rng.normal(size=(b, n, f12)).astype(np.float32) * mask[..., None],
+        rng.normal(size=(b, n, c)).astype(np.float32),
+        rng.normal(size=(f12, c)).astype(np.float32),
+        (rng.normal(size=(c, c)) * 0.2).astype(np.float32),
+        rng.normal(size=(c,)).astype(np.float32),
+        rng.uniform(0.5, 1.5, size=(c,)).astype(np.float32),
+        rng.normal(size=(c,)).astype(np.float32),
+    ]
+    ct = rng.normal(size=(b, n, c)).astype(np.float32)
+
+    def run(dev):
+        ins = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrays]
+        nn_t = torch.from_numpy(n_nodes).to(dev)
+        cnt = torch.tensor(float(n_nodes.sum()), device=dev)
+        s, mean, var = ah.AssignTailTrain.apply(*ins, nn_t, cnt, 1e-5)
+        torch.sum(s * torch.from_numpy(ct).to(dev)).backward()
+        return [s.detach(), mean, var] + [t.grad for t in ins]
+
+    _grads_close(run(device), run("cpu"))
+
+    nbr, w, cols, masks, nn_ = _graph(seed=3)
+    scale = torch.rand(2, 1024)
+    self_w = torch.rand(2, 1024)
+    x0 = torch.randn(2, 1024, 40)
+    g0 = torch.randn(2, 1024, 40)
+
+    def run_bsr(dev):
+        args = [t.to(dev) for t in (nbr, w, cols, masks)]
+        vals = bsr.bsr_build_blocks(*args)
+        vals_t = bsr.bsr_build_blocks(args[0], (args[1] > 0).float(),
+                                      args[2], args[3])
+        x = x0.to(dev).requires_grad_(True)
+        out = bsr_matmul_precomp(vals, args[2], vals_t, args[2],
+                                 scale.to(dev), self_w.to(dev), x)
+        torch.sum(out * g0.to(dev)).backward()
+        return [out.detach(), x.grad]
+
+    launches = bsr.bsr_matmul.launches
+    got = run_bsr(device)
+    assert bsr.bsr_matmul.launches == launches + 2  # forward and backward
+    _grads_close(got, run_bsr("cpu"))

@@ -81,7 +81,8 @@ def _overrides(root):
 
 def _port_batches(root, split, epochs):
     cfg = Config().apply_overrides(_overrides(root))
-    loader = GraphLoader(NucleiGraphDataset(cfg.data, split), 3, shuffle=True, seed=7)
+    loader = GraphLoader(NucleiGraphDataset(cfg.data, split), 3, device="cpu",
+                         shuffle=True, seed=7)
     return [
         {k: getattr(g, k).numpy() for k in FIELDS}
         for e in epochs for g in loader.epoch(e)

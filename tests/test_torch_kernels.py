@@ -1,6 +1,6 @@
-"""PyTorch port, kernels B1 / B2 / B4: each plain version against the Pallas
-function it replaces (interpret mode on the CPU), and the wrappers' CPU
-dispatch. The CUDA kernels themselves are held against their plain
+"""PyTorch port, kernels B1 / B2 / B3 / B4 / B5: each plain version against
+the Pallas function it replaces (interpret mode on the CPU), and the
+wrappers' CPU dispatch. The CUDA kernels themselves are held against their plain
 versions on a card by tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances are the JAX suite's own for the same kernels:
@@ -8,7 +8,10 @@ Tolerances are the JAX suite's own for the same kernels:
 - B2 atol 1e-4 (tests/test_bsr.py): f32 sums over the 128*M block columns
   in another order;
 - B4 atol 2e-6 on S and S^T (tests/test_assign_head.py): f32 softmax of
-  logits summed in another order.
+  logits summed in another order;
+- B3 atol 1e-4, B5 atol 5e-5 / rtol 1e-4 (tests/test_assign_head.py):
+  column sums over the rows and a row dot in another order; the same in
+  bf16, where both sides round h (B3) and dp (B5) the same way.
 """
 
 import numpy as np
@@ -124,14 +127,54 @@ def test_b4_assign_head_matches_pallas(c):
     np.testing.assert_allclose(s.numpy()[mask > 0].sum(-1), 1.0, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [204, 36])  # C not a multiple of 128
+def test_b3_stats_matches_pallas(c, dtype):
+    """Column sums of h and h^2 over real rows (rows past n_nodes hold
+    nonzero p), with h rounded to p's dtype before summing."""
+    _, p, _, _, _, n_nodes, mask = _head_inputs(2, c=c)
+    ssum, ssq = ah.l2relu_stats(jnp.asarray(p).astype(dtype), jnp.asarray(mask))
+    osum, osq = tah.l2relu_stats_plain(_t(p).to(getattr(torch, dtype)), _t(n_nodes))
+    np.testing.assert_allclose(osum.numpy(), np.asarray(ssum), atol=1e-4)
+    np.testing.assert_allclose(osq.numpy(), np.asarray(ssq), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [204, 36])
+def test_b5_tail_bwd_matches_pallas(c, dtype):
+    """dp of normalize + relu + stats; rows past n_nodes come out 0 though
+    p is not zero there."""
+    rng = np.random.default_rng(c)
+    _, p, _, _, _, n_nodes, mask = _head_inputs(3, c=c)
+    dh = rng.normal(size=p.shape).astype(np.float32) * mask[..., None]
+    u = rng.normal(size=(c,)).astype(np.float32)
+    w = rng.normal(size=(c,)).astype(np.float32)
+    ref = ah._bwd_call(
+        jnp.asarray(p).astype(dtype), jnp.asarray(dh).astype(dtype),
+        jnp.asarray(u), jnp.asarray(w), jnp.asarray(mask),
+    )
+    tdt = getattr(torch, dtype)
+    out = tah.assign_tail_bwd_plain(_t(p).to(tdt), _t(dh).to(tdt), _t(u), _t(w),
+                                    _t(n_nodes))
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=5e-5, rtol=1e-4)
+    assert not out.float().numpy()[mask == 0].any()
+
+
 def test_wrappers_take_plain_version_on_cpu(batch):
     """On CPU tensors the wrappers return the plain version's result and
     launch nothing."""
     w = _t(stage1_weights(batch))
-    launched = (
-        tbsr.bsr_build_blocks.launches, tbsr.bsr_matmul.launches,
-        tah.assign_head_softmax_pre.launches,
-    )
+    def counts():
+        return (
+            tbsr.bsr_build_blocks.launches, tbsr.bsr_matmul.launches,
+            tah.assign_head_softmax_pre.launches, tah.l2relu_stats.launches,
+            tah.assign_tail_bwd.launches,
+        )
+
+    launched = counts()
     nbr, bc, bm = _t(batch["nbr"]), _t(batch["blk_cols"]), _t(batch["blk_mask"])
     vals = tbsr.bsr_build_blocks(nbr, w, bc, bm)
     torch.testing.assert_close(
@@ -147,10 +190,16 @@ def test_wrappers_take_plain_version_on_cpu(batch):
     torch.testing.assert_close(
         s, tah.assign_head_softmax_pre_plain(*args)[0], rtol=0, atol=0
     )
-    assert launched == (
-        tbsr.bsr_build_blocks.launches, tbsr.bsr_matmul.launches,
-        tah.assign_head_softmax_pre.launches,
+    p, n_nodes = args[1], args[5]
+    for got, ref in zip(tah.l2relu_stats(p, n_nodes),
+                        tah.l2relu_stats_plain(p, n_nodes)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    dh, u = torch.ones_like(p), torch.ones(p.shape[-1])
+    torch.testing.assert_close(
+        tah.assign_tail_bwd(p, dh, u, u, n_nodes),
+        tah.assign_tail_bwd_plain(p, dh, u, u, n_nodes), rtol=0, atol=0,
     )
+    assert launched == counts()
 
 
 def test_wrappers_refuse_other_devices(batch):

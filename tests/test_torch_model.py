@@ -230,6 +230,10 @@ def test_unported_paths_raise(slice_case, batch):
         no_meta.pop(k)
     with pytest.raises(ValueError, match="block metadata"):
         port(torch_graph(no_meta))
-    with pytest.raises(NotImplementedError, match="eval"):
-        port.train()(torch_graph(batch))
+    # a backward through stage 1 needs the transpose tables
+    no_t = dict(batch)
+    for k in ("nbr_t", "nbr_t_mask", "blk_cols_t", "blk_mask_t"):
+        no_t.pop(k)
+    with pytest.raises(ValueError, match="transpose tables"):
+        port.train()(torch_graph(no_t))
     port.eval()

@@ -104,11 +104,11 @@ def test_predict_matches_jax_cli(served):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, import with jax, flax
-    and the JAX package blocked."""
+    """Every module of the port, and chip_smoke.py, import with jax, flax,
+    optax and the JAX package blocked."""
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
-        "for name in ('jax', 'flax', 'cgcnet_tpu'):\n"
+        "for name in ('jax', 'flax', 'optax', 'cgcnet_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import cgcnet_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -118,7 +118,7 @@ def test_port_imports_without_jax():
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'cgcnet_tpu') and sys.modules[m] is not None]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'cgcnet_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
