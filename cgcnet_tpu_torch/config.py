@@ -68,8 +68,8 @@ class ModelConfig:
     # name so one config JSON drives both packages). In this package
     # 'auto' and 'always' run the BSR path: the hand-written CUDA kernels
     # when the batch lies on a CUDA device, their plain PyTorch versions
-    # when it lies on the CPU. 'never' asks for the gather path, which
-    # this package does not have yet (the model raises).
+    # when it lies on the CPU. 'never' (or a batch without block metadata)
+    # runs the ELL gather path in plain PyTorch.
     use_pallas: str | bool = "auto"
     # Fold the pooling blocks' bn3 affine into the concat-lin kernel
     # (nn/blocks.py::GNNBlock.finish_folded): the 1140-wide assign head never

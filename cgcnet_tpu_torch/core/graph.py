@@ -32,6 +32,8 @@ class CellGraph:
                                node's own index.
       nbr_mask: f32[B, N, K]   1.0 for real neighbour slots.
       n_nodes:  i32[B]         real node count per graph.
+      nbr_w:    optional f32[B, N, K] edge weights; None means a binary
+                               adjacency (every real slot weighs 1.0).
       y, patch_idx:            optional i32[B] labels / dataset indices.
       nbr_t, nbr_t_mask:       transposed (in-edge) lists, [B, N, KT].
       blk_cols, blk_mask:      i32/f32[B, N/128, M] nonzero 128x128 block
@@ -39,13 +41,14 @@ class CellGraph:
       blk_cols_t, blk_mask_t:  the same for the transpose.
 
     Row i aggregates from ``nbr[b, i, k]``: the implied adjacency is
-    ``adj[b, i, nbr[b, i, k]] += 1`` over real slots.
+    ``adj[b, i, nbr[b, i, k]] += w`` over real slots.
     """
 
     x: torch.Tensor
     nbr: torch.Tensor
     nbr_mask: torch.Tensor
     n_nodes: torch.Tensor
+    nbr_w: Optional[torch.Tensor] = None
     y: Optional[torch.Tensor] = None
     patch_idx: Optional[torch.Tensor] = None
     nbr_t: Optional[torch.Tensor] = None
@@ -66,6 +69,15 @@ class CellGraph:
     def mask(self, dtype=torch.float32) -> torch.Tensor:
         """[B, N] node validity mask."""
         return node_mask(self.n_nodes, self.capacity, dtype)
+
+    def weights(self) -> torch.Tensor:
+        """[B, N, K] effective edge weights (slot mask applied)."""
+        if self.nbr_w is None:
+            return self.nbr_mask
+        return self.nbr_w * self.nbr_mask
+
+    def with_weights(self, w: torch.Tensor) -> "CellGraph":
+        return dataclasses.replace(self, nbr_w=w)
 
     def num_edges(self) -> torch.Tensor:
         """Total real edge count in the batch (i32 scalar on the device)."""

@@ -1,26 +1,34 @@
-// B4 — fused assign head of the pooling block ("pre" mode).
+// B4 and B6 — fused assign head of the pooling block.
 //
-// Replaces cgcnet_tpu/ops/pallas/assign_head.py: _fwd_call_pre
-// (_kernel_pre). Per row n of batch b, with rnorm over the WHOLE raw row p
-// (before relu):
+// B4 replaces cgcnet_tpu/ops/pallas/assign_head.py: _fwd_call_pre
+// (_kernel_pre), the "pre" mode. Per row n of batch b, with rnorm over the
+// WHOLE raw row p (before relu):
 //
 //   rnorm  = 1 / max(||p||, 1e-12)
 //   h      = round_T(relu(p) * rnorm)          (T = the storage type)
 //   logits = x12 @ K12 + h @ K3f + const       (f32 accumulation)
 //   S      = softmax(logits) in f32, rows n >= n_nodes[b] exactly 0
 //
+// B6 replaces cgcnet_tpu/ops/pallas/assign_head.py: _fwd_call (_kernel),
+// the same head without the normalize step: the second operand is conv3's
+// activation h3a itself, logits = x12 @ K12 + h3a @ K3f + const. Both are
+// one kernel set here; the compile-time switch PRE drops B6's row-norm
+// launch and the transform on load.
+//
 // Bound on the H100: operations. The product is [B*N x (F12+C)] x
 // [(F12+C) x C] — 62 GFLOP at the canonical B=4, N=5760, F12=40, C=1140 —
 // on the f32 CUDA cores (no TF32: the port keeps f32 exact). The 1140-wide
 // f32 logits row of a 128-row tile does not fit in shared memory, so the
-// work is three launches on one stream:
-//   1. rnorm_kernel: one warp per row, f32 sum of squares -> rnorm scratch;
+// work is three launches on one stream (two for B6):
+//   1. rnorm_kernel (B4 only): one warp per row, f32 sum of squares ->
+//      rnorm scratch;
 //   2. gemm_kernel: a 128x128 output tile per block, k-steps of 32 over x12
-//      @ K12 and then h @ K3f (h formed on load from p and the tile's rnorm,
-//      staged in shared memory), 8x8 f32 register tile per thread, each
-//      thread's global loads of a k-step issued together into registers;
-//      writes logits + const to an f32 buffer (S itself in f32, a scratch
-//      buffer in bf16). Tiles wholly past n_nodes are skipped;
+//      @ K12 and then h @ K3f (B4: h formed on load from p and the tile's
+//      rnorm, staged in shared memory; B6: h3a as it is), 8x8 f32 register
+//      tile per thread, each thread's global loads of a k-step issued
+//      together into registers; writes logits + const to an f32 buffer (S
+//      itself in f32, a scratch buffer in bf16). Tiles wholly past n_nodes
+//      are skipped;
 //   3. softmax_kernel: one warp per row, max / sum / normalize passes over
 //      the f32 logits, writes S in T (in place in f32: each lane reads an
 //      element before it writes it).
@@ -114,7 +122,7 @@ __device__ __forceinline__ void gemm_part(
   }
 }
 
-template <typename T>
+template <typename T, bool PRE>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(
     const T* __restrict__ x12, const T* __restrict__ p,
     const float* __restrict__ rnorm, const T* __restrict__ k12,
@@ -130,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
   const int col0 = blockIdx.x * kBN;
   const int t = threadIdx.x;
   const int tx = t % 16, ty = t / 16;
-  if (t < kBM) s_rn[t] = rnorm[row0 + t];
+  if (PRE && t < kBM) s_rn[t] = rnorm[row0 + t];
   __syncthreads();
 
   float acc[8][8];
@@ -140,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   gemm_part<T, false>(x12, F12, k12, C, F12, row0, col0, C, s_rn, As, Bs, acc);
-  gemm_part<T, true>(p, C, k3f, C, C, row0, col0, C, s_rn, As, Bs, acc);
+  gemm_part<T, PRE>(p, C, k3f, C, C, row0, col0, C, s_rn, As, Bs, acc);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -181,7 +189,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+// PRE: B4 (p raw, normalized on load); else B6 (p is h3a, rnorm unused)
+template <typename T, bool PRE>
 cudaError_t launch(const void* x12, const void* p, const void* k12,
                    const void* k3f, const float* cnst, const int* n_nodes,
                    float* rnorm, float* logits, void* s, int B, int N, int F12,
@@ -190,10 +199,12 @@ cudaError_t launch(const void* x12, const void* p, const void* k12,
   if (rows == 0 || C == 0) return cudaGetLastError();
   const unsigned warp_blocks =
       static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
-  rnorm_kernel<T><<<warp_blocks, kThreads, 0, st>>>(static_cast<const T*>(p),
-                                                    rnorm, rows, C);
+  if (PRE) {
+    rnorm_kernel<T><<<warp_blocks, kThreads, 0, st>>>(
+        static_cast<const T*>(p), rnorm, rows, C);
+  }
   const dim3 grid((C + kBN - 1) / kBN, static_cast<unsigned>(rows / kBM));
-  gemm_kernel<T><<<grid, kThreads, 0, st>>>(
+  gemm_kernel<T, PRE><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x12), static_cast<const T*>(p), rnorm,
       static_cast<const T*>(k12), static_cast<const T*>(k3f), cnst, n_nodes,
       logits, N, F12, C);
@@ -202,14 +213,11 @@ cudaError_t launch(const void* x12, const void* p, const void* k12,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int cgc_assign_head_pre(const void* x12, const void* p,
-                                   const void* k12, const void* k3f,
-                                   const void* cnst, const void* n_nodes,
-                                   void* rnorm, void* logits, void* s, int B,
-                                   int N, int F12, int C, int dtype,
-                                   int device, void* stream) {
+template <bool PRE>
+int dispatch(const void* x12, const void* p, const void* k12, const void* k3f,
+             const void* cnst, const void* n_nodes, void* rnorm, void* logits,
+             void* s, int B, int N, int F12, int C, int dtype, int device,
+             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto st = static_cast<cudaStream_t>(stream);
@@ -219,11 +227,37 @@ extern "C" int cgc_assign_head_pre(const void* x12, const void* p,
   auto lg = static_cast<float*>(logits);
   switch (dtype) {
     case cgc::kF32:
-      return launch<float>(x12, p, k12, k3f, c, nn, rn, lg, s, B, N, F12, C, st);
+      return launch<float, PRE>(x12, p, k12, k3f, c, nn, rn, lg, s, B, N, F12,
+                                C, st);
     case cgc::kBF16:
-      return launch<__nv_bfloat16>(x12, p, k12, k3f, c, nn, rn, lg, s, B, N,
-                                   F12, C, st);
+      return launch<__nv_bfloat16, PRE>(x12, p, k12, k3f, c, nn, rn, lg, s, B,
+                                        N, F12, C, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// B4: x12, raw p, K12, K3f, const, n_nodes; rnorm scratch [B*N] f32
+extern "C" int cgc_assign_head_pre(const void* x12, const void* p,
+                                   const void* k12, const void* k3f,
+                                   const void* cnst, const void* n_nodes,
+                                   void* rnorm, void* logits, void* s, int B,
+                                   int N, int F12, int C, int dtype,
+                                   int device, void* stream) {
+  return dispatch<true>(x12, p, k12, k3f, cnst, n_nodes, rnorm, logits, s, B,
+                        N, F12, C, dtype, device, stream);
+}
+
+// B6: x12, h3a, K12, K3f, const, n_nodes; rnorm is not read (null), so the
+// two entries share one argument list
+extern "C" int cgc_assign_head(const void* x12, const void* h3a,
+                               const void* k12, const void* k3f,
+                               const void* cnst, const void* n_nodes,
+                               void* rnorm, void* logits, void* s, int B,
+                               int N, int F12, int C, int dtype, int device,
+                               void* stream) {
+  return dispatch<false>(x12, h3a, k12, k3f, cnst, n_nodes, rnorm, logits, s,
+                         B, N, F12, C, dtype, device, stream);
 }

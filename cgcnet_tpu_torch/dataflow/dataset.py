@@ -451,8 +451,8 @@ def attach_bsr_meta(
     (in-edge) lists typically touch more column tiles than the forward
     lists, and kernel DMA cost scales with the cap. Tight metadata with a
     bounded set of compiled shapes; ``bsr_blocks`` is the ceiling — beyond
-    it, the batch carries no metadata (the model then raises: the gather
-    path for such batches is not ported yet).
+    it, the batch carries no metadata and the model runs its stage 1 by
+    ELL gathers (``ops/ell.py``), no kernel.
 
     ``sticky_caps``: mutable {direction: cap} floor shared across batches —
     caps only GROW, so a run converges to ONE compiled train-step shape per

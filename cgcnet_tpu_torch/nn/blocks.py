@@ -1,10 +1,11 @@
 """GNN block and DiffPool (reference ``GNN_Module`` model/network.py:57-125
 and ``_diff_pool`` model/network.py:194-208).
 
-Port of ``cgcnet_tpu/nn/blocks.py`` for SAGE + relu + BN: the per-block
-conv steps and tails, the paired (embed, pool) blocks that share one
-aggregation per layer, the dual-stream tail, the BN-folded assign tails
-(``finish_folded`` and the fused ``finish_folded_pre``: B4 in eval mode,
+Port of ``cgcnet_tpu/nn/blocks.py``: the per-block conv steps (SAGE, GIN or
+GAT; any activation; BN optional) and tails, the paired (embed, pool)
+blocks that share one aggregation per layer, the dual-stream tail, the
+BN-folded assign tails (``finish_folded``, fused into B6 with
+``fused_softmax``, and the deeper ``finish_folded_pre``: B4 in eval mode,
 B3 + B4 forward and B5 backward in training) and the DiffPool
 contractions. Training mode follows the modules' ``training`` flag: BN
 normalizes with batch moments and updates its running moments.
@@ -19,25 +20,27 @@ from torch import nn
 
 from cgcnet_tpu_torch.nn.adjacency import Adjacency
 from cgcnet_tpu_torch.nn.layers import (
+    GATConv,
+    GINConv,
     SAGEConv,
     TorchBatchNorm,
     TorchLinear,
+    activation,
     batch_moments,
 )
 from cgcnet_tpu_torch.ops.assign_head import (
+    AssignHeadSoftmax,
     AssignHeadSoftmaxPre,
     AssignTailTrain,
 )
 
 
 class GNNBlock(nn.Module):
-    """Three stacked SAGE convolutions, each relu + BN, concat of the three
+    """Three stacked convolutions, each activation + BN, concat of the three
     outputs; ``use_lin`` (pooling blocks) maps the concat to
-    ``embedding_dim`` with bn3's affine folded into that lin.
-
-    The ported configuration fixes relu, BN and the folded tail (``CGCNet``
-    refuses the others). ``masked_bn``: BN batch statistics over real rows
-    only."""
+    ``embedding_dim``. ``masked_bn``: BN batch statistics over real rows
+    only. ``fold_tail`` folds bn3's affine into that lin
+    (``finish_folded``); it needs ``use_lin`` and ``use_bn``."""
 
     def __init__(
         self,
@@ -48,24 +51,57 @@ class GNNBlock(nn.Module):
         use_bias: bool = True,
         use_lin: bool = True,
         masked_bn: bool = True,
+        gcn_name: str = "SAGE",
+        act: str = "relu",
+        use_bn: bool = True,
+        fold_tail: bool = False,
+        gat_heads: int = 1,
     ):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.masked_bn = masked_bn
-        self.gcn1 = SAGEConv(input_dim, hidden_dim, use_bias)
-        self.gcn2 = SAGEConv(hidden_dim, hidden_dim, use_bias)
-        self.gcn3 = SAGEConv(hidden_dim, embedding_dim, use_bias)
-        self.bn1 = TorchBatchNorm(hidden_dim)
-        self.bn2 = TorchBatchNorm(hidden_dim)
-        self.bn3 = TorchBatchNorm(embedding_dim)
+        self.gcn_name = gcn_name
+        self.act = act
+        self.use_bn = use_bn
+        self.use_lin = use_lin
+        self.fold_tail = fold_tail
+        activation(act)  # refuse an unknown name here, not mid-forward
+
+        def conv(fin, fout):
+            if gcn_name == "SAGE":
+                return SAGEConv(fin, fout, use_bias)
+            if gcn_name == "GIN":
+                return GINConv(fin, fout, act)
+            if gcn_name == "GAT":
+                return GATConv(fin, fout, gat_heads, use_bias)
+            raise ValueError(f"unknown gcn_name {gcn_name!r}")
+
+        self.gcn1 = conv(input_dim, hidden_dim)
+        self.gcn2 = conv(hidden_dim, hidden_dim)
+        self.gcn3 = conv(hidden_dim, embedding_dim)
+        if use_bn:
+            self.bn1 = TorchBatchNorm(hidden_dim)
+            self.bn2 = TorchBatchNorm(hidden_dim)
+            self.bn3 = TorchBatchNorm(embedding_dim)
         if use_lin:
             self.lin = TorchLinear(2 * hidden_dim + embedding_dim, embedding_dim)
 
-    def conv(self, i: int) -> SAGEConv:
+    def conv(self, i: int) -> nn.Module:
         return (self.gcn1, self.gcn2, self.gcn3)[i - 1]
 
     def bn(self, i: int) -> TorchBatchNorm:
         return (self.bn1, self.bn2, self.bn3)[i - 1]
+
+    @property
+    def folds_tail(self) -> bool:
+        return self.fold_tail and self.use_lin and self.use_bn
+
+    @property
+    def folds_norm(self) -> bool:
+        """Whether the deeper ``finish_folded_pre`` tail applies: it relies
+        on relu(l2norm(p)) == rnorm * relu(p), so SAGE (which normalizes)
+        and relu (positively homogeneous) only."""
+        return self.folds_tail and self.gcn_name == "SAGE" and self.act == "relu"
 
     def conv_step(
         self,
@@ -78,14 +114,16 @@ class GNNBlock(nn.Module):
         apply_bn: bool = True,
         raw: bool = False,
     ) -> torch.Tensor:
-        """conv_i -> relu -> bn_i. ``agg`` optionally supplies A @ x;
-        ``apply_bn=False`` returns the pre-BN activation; ``raw`` returns
-        the conv's raw lin output (the fused tail does the rest)."""
+        """conv_i -> activation -> bn_i. ``agg`` optionally supplies A @ x;
+        ``apply_bn=False`` returns the pre-BN activation; ``raw`` (SAGE
+        only) returns the conv's raw lin output (the fused tail does the
+        rest)."""
         conv = self.conv(i)
         if raw:
+            assert self.gcn_name == "SAGE", self.gcn_name
             return conv(x, adj, mask, agg=agg, pre_normalize=True)
-        h = torch.relu(conv(x, adj, mask, agg=agg))
-        if not apply_bn:
+        h = activation(self.act)(conv(x, adj, mask, agg=agg))
+        if not (self.use_bn and apply_bn):
             return h
         return self.bn(i)(h, mask if self.masked_bn else None)
 
@@ -134,10 +172,15 @@ class GNNBlock(nn.Module):
         x2: torch.Tensor,
         h3a: torch.Tensor,
         mask: Optional[torch.Tensor],
-    ) -> torch.Tensor:
+        *,
+        fused_softmax: bool = False,
+        n_nodes: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
         """``bn3 -> concat -> mask -> lin -> mask`` with bn3's affine folded
         into the lin kernel: concat(x1, x2) @ K12 + h3a @ (inv*K3) + const
-        (bn3's batch moments of ``h3a`` in training)."""
+        (bn3's batch moments of ``h3a`` in training). ``fused_softmax``:
+        the masked assignment softmax too, one B6 launch; returns (S, S^T),
+        S^T a view, instead of the logits (rows past ``n_nodes`` are 0)."""
         mean, var, n = self.bn3.moments(h3a, mask if self.masked_bn else None)
         if self.training:
             self.bn3.update_running(mean, var, n)
@@ -151,6 +194,9 @@ class GNNBlock(nn.Module):
             const = const + self.lin.bias
         dt = h3a.dtype
         x12 = torch.cat([x1, x2], dim=-1)
+        if fused_softmax:
+            s = AssignHeadSoftmax.apply(x12, h3a, k12, k3f, const, n_nodes)
+            return s, s.transpose(1, 2)
         out = x12 @ k12.to(dt) + h3a @ k3f.to(dt) + const.to(dt)
         if mask is not None:
             out = out * mask[..., None].to(dt)
@@ -159,10 +205,14 @@ class GNNBlock(nn.Module):
     def finish(
         self, xs: list[torch.Tensor], mask: Optional[torch.Tensor]
     ) -> torch.Tensor:
-        """Concat of the three conv outputs (embedding blocks, no lin)."""
+        """Concat of the three conv outputs, then the lin (pooling blocks)."""
         out = torch.cat(xs, dim=-1)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
+        if self.use_lin:
+            out = self.lin(out)
+            if mask is not None:
+                out = out * mask[..., None].to(out.dtype)
         return out
 
     def forward(
@@ -171,11 +221,14 @@ class GNNBlock(nn.Module):
         adj: Adjacency,
         mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """A lone embedding block (stage 3); pooling blocks always run
-        paired (``paired_blocks``)."""
+        """A lone block: the stage-3 embedding and the attention blocks."""
+        fold = self.folds_tail
         x1 = self.conv_step(1, x, adj, mask)
         x2 = self.conv_step(2, x1, adj, mask)
-        return self.finish([x1, x2, self.conv_step(3, x2, adj, mask)], mask)
+        x3 = self.conv_step(3, x2, adj, mask, apply_bn=not fold)
+        if fold:
+            return self.finish_folded(x1, x2, x3, mask)
+        return self.finish([x1, x2, x3], mask)
 
 
 def _dual_lin(
@@ -264,7 +317,7 @@ def _dual_tail(
     cat: torch.Tensor,  # [B, N, 2F] RAW lin outputs (e ++ p)
     mask: Optional[torch.Tensor],
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """l2norm -> mask -> relu -> BN for an equal-width (embed, pool) conv pair
+    """l2norm -> mask -> act -> BN for an equal-width (embed, pool) conv pair
     on the concatenated stream; the per-stream math is that of the solo
     ``conv_step`` chains. In training one two-pass moments computation over
     the concatenated channels normalizes both streams and each block's BN
@@ -274,7 +327,7 @@ def _dual_tail(
     h = dual_l2norm_2d(cat, f)
     if mask is not None:
         h = h * mask[..., None].to(dt)
-    h = torch.relu(h)
+    h = activation(e_blk.act)(h)
     be, bp = e_blk.bn(i), p_blk.bn(i)
     if e_blk.training:
         mean, var, n = batch_moments(h, mask if e_blk.masked_bn else None)
@@ -298,36 +351,62 @@ def paired_blocks(
     mask: Optional[torch.Tensor],
     *,
     n_nodes: Optional[torch.Tensor] = None,
-    pool_pre: bool = False,
+    pool_softmax: bool | str = False,
 ) -> tuple[torch.Tensor, torch.Tensor | tuple[torch.Tensor, torch.Tensor]]:
     """Run an (embed, pool) block pair over one shared aggregation stream:
     layer 1 reads the same A @ x, layers 2-3 aggregate the concatenated
     streams in one matvec and split.
 
-    ``pool_pre``: the pool block ends in the fused assign head (B4, needs
-    ``n_nodes``) and returns (S, S^T); otherwise it returns assign logits.
+    ``pool_softmax``: False -> the pool block returns assign logits; True
+    -> the folded tail with the fused softmax (B6) returns (S, S^T); "pre"
+    -> the deeper fold (B4; SAGE + relu). The fused heads need ``n_nodes``.
+    Attention (GAT) cannot share an aggregation: the blocks run apart.
     """
-    # equal conv widths: both streams' tails run as one (_dual_tail)
-    can_dual = embed_blk.hidden_dim == pool_blk.hidden_dim
+    assert not (pool_softmax and not pool_blk.folds_tail)
+    pre = pool_softmax == "pre"
+    assert not pre or pool_blk.folds_norm
+    if "GAT" in (embed_blk.gcn_name, pool_blk.gcn_name):
+        if pool_softmax:
+            x1 = pool_blk.conv_step(1, x, adj, mask)
+            x2 = pool_blk.conv_step(2, x1, adj, mask)
+            x3 = pool_blk.conv_step(3, x2, adj, mask, apply_bn=False)
+            pool_out = pool_blk.finish_folded(
+                x1, x2, x3, mask, fused_softmax=True, n_nodes=n_nodes
+            )
+        else:
+            pool_out = pool_blk(x, adj, mask)
+        return embed_blk(x, adj, mask), pool_out
+    fold_p = pool_blk.folds_tail
+    # equal-width SAGE streams with one activation and BN setting: the
+    # layers' l2norm/mask/act/BN chains run once on the concatenated stream
+    # and both lins as one matmul (the JAX package also needs each lin's
+    # fan-in declared for that; here every lin declares it)
+    can_dual = (
+        embed_blk.gcn_name == "SAGE"
+        and pool_blk.gcn_name == "SAGE"
+        and embed_blk.use_bn
+        and pool_blk.use_bn
+        and embed_blk.act == pool_blk.act
+        and embed_blk.masked_bn == pool_blk.masked_bn
+        and embed_blk.hidden_dim == pool_blk.hidden_dim
+    )
     agg1 = adj.matvec(x)
     if can_dual:
+        f = embed_blk.hidden_dim
         denom = torch.clamp_min(adj.rowsum(), 1.0)[..., None].to(agg1.dtype)
         r1 = _dual_lin(embed_blk, pool_blk, 1, agg1, denom, shared_input=True)
         cat, e1, p1 = _dual_tail(embed_blk, pool_blk, 1, r1, mask)
-        e_outs, p_outs = [e1], [p1]
-        f = embed_blk.hidden_dim
-        agg = adj.matvec(cat)
-        r2 = _dual_lin(embed_blk, pool_blk, 2, agg, denom, shared_input=False)
+        r2 = _dual_lin(embed_blk, pool_blk, 2, adj.matvec(cat), denom,
+                       shared_input=False)
         cat, e2, p2 = _dual_tail(embed_blk, pool_blk, 2, r2, mask)
-        e_outs.append(e2)
-        p_outs.append(p2)
+        e_outs, p_outs = [e1, e2], [p1, p2]
         # layer 3: the output widths differ — each stream runs its own tail
         agg = adj.matvec(cat)
-        agg_e, agg_p = agg[..., :f], agg[..., f:]
-        e_outs.append(embed_blk.conv_step(3, e2, adj, mask, agg=agg_e))
+        e_outs.append(embed_blk.conv_step(3, e2, adj, mask, agg=agg[..., :f]))
         p_outs.append(
             pool_blk.conv_step(
-                3, p2, adj, mask, agg=agg_p, apply_bn=False, raw=pool_pre
+                3, p2, adj, mask, agg=agg[..., f:], apply_bn=not fold_p,
+                raw=pre,
             )
         )
     else:
@@ -342,14 +421,18 @@ def paired_blocks(
             p_outs.append(
                 pool_blk.conv_step(
                     i, hp, adj, mask, agg=agg_p,
-                    apply_bn=i != 3,
-                    raw=(i == 3 and pool_pre),
+                    apply_bn=i != 3 or not fold_p,
+                    raw=i == 3 and pre,
                 )
             )
-    if pool_pre:
+    if pre:
         pool_out = pool_blk.finish_folded_pre(*p_outs, n_nodes)
+    elif fold_p:
+        pool_out = pool_blk.finish_folded(
+            *p_outs, mask, fused_softmax=bool(pool_softmax), n_nodes=n_nodes
+        )
     else:
-        pool_out = pool_blk.finish_folded(*p_outs, mask)
+        pool_out = pool_blk.finish(p_outs, mask)
     return embed_blk.finish(e_outs, mask), pool_out
 
 

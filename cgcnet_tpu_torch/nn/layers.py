@@ -1,8 +1,10 @@
 """Graph convolution, linear and normalization layers.
 
 Port of ``cgcnet_tpu/nn/layers.py`` with the same numerical contracts
-(PyG 1.2.1 ``DenseSAGEConv`` with normalize=True, torch ``BatchNorm1d``
-over the flattened [B*N, C] rows). Parameters use PyTorch's layouts:
+(PyG 1.2.1 ``DenseSAGEConv`` with normalize=True and ``DenseGINConv`` with
+add_loop=False, the JAX package's dot-product attention ``GATConv``, torch
+``BatchNorm1d`` over the flattened [B*N, C] rows). Parameters use PyTorch's
+layouts:
 linear weights are [out, in] (the JAX package keeps [in, out] kernels —
 ``train/checkpoint.state_dict_from_flax`` transposes).
 """
@@ -10,12 +12,25 @@ linear weights are [out, in] (the JAX package keeps [in, out] kernels —
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from cgcnet_tpu_torch.nn.adjacency import Adjacency
+from cgcnet_tpu_torch.nn.adjacency import Adjacency, DenseAdj, EllAdjFactored
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activation by name (reference model/network.py:84-91)."""
+    if name == "relu":
+        return torch.relu
+    if name == "elu":
+        return F.elu
+    if name == "leakyrelu":
+        # torch nn.LeakyReLU's default negative_slope
+        return lambda x: F.leaky_relu(x, negative_slope=0.01)
+    raise ValueError(f"unknown activation {name!r}")
 
 
 class TorchLinear(nn.Module):
@@ -72,6 +87,113 @@ class SAGEConv(nn.Module):
             # head (ops/assign_head.py) — the caller owns masking too
             return out
         out = l2_normalize(out)
+        if mask is not None:
+            out = out * mask[..., None].to(out.dtype)
+        return out
+
+
+class GINConv(nn.Module):
+    """GIN convolution, PyG-1.2.1 ``DenseGINConv`` with add_loop=False:
+    out = mlp(A @ x), mlp = Linear(in->out), act, Linear(out->out); mask
+    (reference model/network.py:96-99)."""
+
+    def __init__(self, in_features: int, features: int, act: str = "relu"):
+        super().__init__()
+        self.act = act
+        self.mlp_0 = TorchLinear(in_features, features)
+        self.mlp_1 = TorchLinear(features, features)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        adj: Adjacency,
+        mask: Optional[torch.Tensor] = None,
+        *,
+        agg: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        out = adj.matvec(x) if agg is None else agg
+        out = self.mlp_1(activation(self.act)(self.mlp_0(out)))
+        if mask is not None:
+            out = out * mask[..., None].to(out.dtype)
+        return out
+
+
+class GATConv(nn.Module):
+    """Dot-product (multi-head) attention over the adjacency's support (the
+    JAX package's extension, ``gcn_name='GAT'``). Per head h: out_i =
+    sum_j alpha^h_ij (W_v x_j)^h, alpha^h = softmax_j(<(W_q x_i)^h,
+    (W_k x_j)^h> / sqrt(D)) over {i} and the neighbours of i; heads
+    concatenate back to ``features``. Scores and softmax in f32. On the ELL
+    layouts the neighbours' k and v rows are gathered once for all heads;
+    on a dense adjacency the full score matrix is masked by its support."""
+
+    def __init__(
+        self, in_features: int, features: int, heads: int = 1,
+        use_bias: bool = True,
+    ):
+        super().__init__()
+        if features % heads:
+            raise ValueError(f"GAT width {features} is not divisible by "
+                             f"{heads} heads")
+        self.features, self.heads = features, heads
+        self.q = TorchLinear(in_features, features, use_bias)
+        self.k = TorchLinear(in_features, features, use_bias)
+        self.v = TorchLinear(in_features, features, use_bias)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        adj: Adjacency,
+        mask: Optional[torch.Tensor] = None,
+        *,
+        agg: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        del agg  # attention cannot share a precomputed aggregation
+        h, d = self.heads, self.features // self.heads
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        scale = 1.0 / math.sqrt(d)
+        b, n = x.shape[0], x.shape[1]
+        neg = torch.finfo(torch.float32).min
+        qh = q.reshape(b, n, h, d)
+        if isinstance(adj, DenseAdj):
+            logits = torch.einsum(
+                "bihd,bjhd->bhij", qh.float(), k.reshape(b, n, h, d).float()
+            ) * scale
+            logits = torch.where((adj.adj > 0)[:, None], logits, neg)
+            alpha = torch.softmax(logits, dim=-1).to(x.dtype)
+            # rows with no support would softmax to a uniform row
+            alpha = alpha * (adj.rowsum() > 0)[:, None, :, None].to(x.dtype)
+            out = torch.einsum(
+                "bhij,bjhd->bihd", alpha, v.reshape(b, n, h, d)
+            ).reshape(b, n, self.features)
+        else:
+            if isinstance(adj, EllAdjFactored):
+                nbr, slot_mask = adj.nbr, adj.off_mask
+            else:
+                row = torch.arange(n, device=x.device, dtype=adj.nbr.dtype)
+                slot_mask = (adj.w > 0).to(x.dtype) * (adj.nbr != row[None, :, None])
+                nbr = adj.nbr
+            kk = nbr.shape[2]
+            bidx = torch.arange(b, device=x.device)[:, None, None]
+            gk = k[bidx, nbr.long()].reshape(b, n, kk, h, d)   # [B, N, K, H, D]
+            gv = v[bidx, nbr.long()].reshape(b, n, kk, h, d)
+            e_nbr = torch.einsum("bnhd,bnkhd->bnkh", qh.float(), gk.float())
+            e_self = torch.einsum(
+                "bnhd,bnhd->bnh", qh.float(), k.reshape(b, n, h, d).float()
+            )[:, :, None]
+            # scores over [self ++ K off-diagonal slots], softmax in f32
+            scores = torch.cat([e_self, e_nbr], dim=2) * scale
+            smask = torch.cat(
+                [torch.ones((b, n, 1), device=x.device), slot_mask.float()], -1
+            )[..., None]
+            scores = torch.where(smask > 0, scores, neg)
+            m = torch.amax(scores, dim=2, keepdim=True)
+            ex = torch.exp(scores - m.detach()) * smask
+            alpha = (ex / torch.sum(ex, dim=2, keepdim=True)).to(x.dtype)
+            out = (
+                alpha[:, :, 0, :, None] * v.reshape(b, n, h, d)
+                + torch.einsum("bnkh,bnkhd->bnhd", alpha[:, :, 1:], gv)
+            ).reshape(b, n, self.features)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out

@@ -2,16 +2,14 @@
 
 Port of ``cgcnet_tpu/nn/model.py`` (reference ``SoftPoolingGcnEncoder``,
 model/network.py:127-291): 3 embedding GNN blocks + 2 pooling GNN blocks +
-2 DiffPool stages + per-stage max readout + MLP head. Stage 1 runs on the
-sparse cell graph through the BSR kernels (B1 builds A's blocks once per
-batch, B2 runs every matvec) and the fused assign head (B4; in training
-B3 and B5 too); stages 2-3 are dense batched matmuls.
-
-The path is the JAX package's canonical one (SAGE, relu, BN, JK,
-``fold_assign_tail`` and the fused "pre" assign head, which needs a batch
-with BSR metadata), in eval and training mode (``model.train()``: BN batch
-statistics, head dropout). GIN/GAT and the gather path for batches without
-metadata are not ported yet and raise.
+2 DiffPool stages + per-stage max readout + MLP head, with SAGE, GIN or GAT
+convolutions, any of the reference's activations, BN optional. Stage 1
+runs on the sparse cell graph: through the BSR kernels when the batch
+carries block metadata (B1 builds A's blocks once per batch, B2 runs every
+matvec) and the fused assign head (B4 for SAGE + relu, B6 otherwise; in
+training B3 and B5 with B4), or through ELL gathers in plain PyTorch when
+it does not; stages 2-3 are dense batched matmuls. Eval and training mode
+(``model.train()``: BN batch statistics, head dropout).
 """
 
 from __future__ import annotations
@@ -24,7 +22,7 @@ from torch import nn
 
 from cgcnet_tpu_torch.config import ModelConfig
 from cgcnet_tpu_torch.core.graph import CellGraph
-from cgcnet_tpu_torch.nn.adjacency import DenseAdj, EllAdjFactored
+from cgcnet_tpu_torch.nn.adjacency import DenseAdj, EllAdj, EllAdjFactored
 from cgcnet_tpu_torch.nn.blocks import (
     GNNBlock,
     diff_pool,
@@ -32,9 +30,9 @@ from cgcnet_tpu_torch.nn.blocks import (
     paired_blocks,
 )
 from cgcnet_tpu_torch.nn.jk import BiLSTMParams, DenseJK
-from cgcnet_tpu_torch.nn.layers import TorchLinear
+from cgcnet_tpu_torch.nn.layers import TorchLinear, activation
 from cgcnet_tpu_torch.ops.bsr import bsr_build_blocks
-from cgcnet_tpu_torch.ops.ell import EPS, renorm_dense
+from cgcnet_tpu_torch.ops.ell import EPS, renorm_dense, renorm_ell
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,21 +46,32 @@ def _tri_state(v, auto: bool) -> bool:
 
 def make_stage1_adj(
     graph: CellGraph, cfg: ModelConfig, dtype: torch.dtype
-) -> EllAdjFactored:
-    """Stage-1 adjacency A = diag(scale)·B_off + diag(self_w) with its BSR
-    blocks built once (B1); the self weight folds into ELL slot 0. With
-    gradients enabled a second B1 launch builds the binary blocks of
-    B_off^T from the transpose tables, for the backward."""
-    if graph.blk_cols is None:
-        raise ValueError(
-            "batch carries no BSR block metadata (blk_cols): the gather path "
-            "for such batches is not ported yet — raise data.bsr_blocks or "
-            "keep data.spatial_sort on"
-        )
+) -> EllAdj | EllAdjFactored:
+    """The stage-1 adjacency, in the JAX package's branch order:
+
+    - no transpose tables (``nbr_t``): ``EllAdj`` with the ``renorm_ell``
+      weights (``norm_adj``) or the graph's own, autograd's backward;
+    - no block metadata (``blk_cols``) or ``use_pallas='never'``: the
+      factored A = diag(scale)·B_off + diag(self_w) over ELL gathers;
+    - otherwise the factored A with its BSR blocks built once (B1; the self
+      weight folds into ELL slot 0). With gradients enabled a second B1
+      launch builds the binary blocks of B_off^T for the backward.
+
+    ``use_pallas='auto'`` means the kernel path here: the CUDA kernels on a
+    CUDA batch, their plain versions on a CPU batch."""
+    if graph.nbr_t is None:
+        if cfg.norm_adj:
+            w = renorm_ell(graph.nbr, graph.nbr_mask, graph.n_nodes,
+                           cfg.self_weight)
+        else:
+            w = graph.weights()
+        return EllAdj(nbr=graph.nbr, w=w.to(dtype))
+    bsr = _tri_state(cfg.use_pallas, True) and graph.blk_cols is not None
     n = graph.capacity
     row = torch.arange(n, device=graph.device, dtype=graph.nbr.dtype)[None, :, None]
     is_slot_self = graph.nbr == row
     off = graph.nbr_mask * (~is_slot_self)
+    off_t = graph.nbr_t_mask * (graph.nbr_t != row)
     deg = torch.sum(off, dim=-1)
     valid = graph.mask(dtype)
     if cfg.norm_adj:
@@ -71,30 +80,34 @@ def make_stage1_adj(
         # renormalized rows sum to <= 1: SAGE's clamp(min=1) divisor is 1
         rowsum = torch.ones_like(valid)
     else:
+        # binary adjacency: a self loop only where the graph carries one
         has_self = torch.amax(graph.nbr_mask * is_slot_self, dim=-1)
         scale = valid
         self_w = has_self * valid
         rowsum = (deg + has_self) * valid
-    is_self = graph.nbr_mask * is_slot_self
-    w_fwd = scale[..., None] * off + self_w[..., None] * is_self
-    vals = bsr_build_blocks(
-        graph.nbr, w_fwd, graph.blk_cols, graph.blk_mask, dtype
-    )
-    vals_t = None
-    if torch.is_grad_enabled():
-        if graph.nbr_t is None or graph.blk_cols_t is None:
-            raise ValueError(
-                "a backward through stage 1 needs the transpose tables "
-                "(nbr_t, blk_cols_t) the loader builds"
-            )
-        off_t = graph.nbr_t_mask * (graph.nbr_t != row)
-        vals_t = bsr_build_blocks(
-            graph.nbr_t, off_t, graph.blk_cols_t, graph.blk_mask_t, dtype
+    vals = vals_t = None
+    if bsr:
+        is_self = graph.nbr_mask * is_slot_self
+        w_fwd = scale[..., None] * off + self_w[..., None] * is_self
+        vals = bsr_build_blocks(
+            graph.nbr, w_fwd, graph.blk_cols, graph.blk_mask, dtype
         )
+        if torch.is_grad_enabled():
+            if graph.blk_cols_t is None:
+                raise ValueError(
+                    "a backward through stage 1 needs the transpose block "
+                    "metadata (blk_cols_t) the loader builds"
+                )
+            vals_t = bsr_build_blocks(
+                graph.nbr_t, off_t, graph.blk_cols_t, graph.blk_mask_t, dtype
+            )
     return EllAdjFactored(
-        rowsum_=rowsum.to(dtype), blk_cols=graph.blk_cols, vals=vals,
-        scale=scale.to(dtype), self_w=self_w.to(dtype),
-        blk_cols_t=graph.blk_cols_t, vals_t=vals_t,
+        nbr=graph.nbr, off_mask=off.to(dtype), nbr_t=graph.nbr_t,
+        off_mask_t=off_t.to(dtype), scale=scale.to(dtype),
+        self_w=self_w.to(dtype), rowsum_=rowsum.to(dtype),
+        blk_cols=graph.blk_cols, blk_mask=graph.blk_mask,
+        blk_cols_t=graph.blk_cols_t, blk_mask_t=graph.blk_mask_t,
+        vals=vals, vals_t=vals_t, impl="bsr" if bsr else "gather",
     )
 
 
@@ -117,31 +130,18 @@ class CGCNet(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        unported = {
-            "gcn_name": cfg.gcn_name != "SAGE",
-            "activation": cfg.activation != "relu",
-            "bn": not cfg.bn,
-            "fold_assign_tail": not cfg.fold_assign_tail,
-            "fused_assign_softmax": not _tri_state(cfg.fused_assign_softmax, True),
-            "fused_assign_norm": not _tri_state(cfg.fused_assign_norm, True),
-            "use_pallas": not _tri_state(cfg.use_pallas, True),
-        }
-        if any(unported.values()):
-            raise NotImplementedError(
-                "not ported yet: "
-                + ", ".join(f"model.{k}={getattr(cfg, k)!r}"
-                            for k, bad in unported.items() if bad)
-                + " (the port runs SAGE, relu, BN and the fused 'pre' "
-                "assign head on the BSR path)"
-            )
         self.cfg = cfg
         c = cfg
         assign1, assign2 = c.assign_dims
         in1, in2, in3 = c.stage_input_dims
 
         def block(in_dim, hidden, emb, lin):
-            return GNNBlock(in_dim, hidden, emb, use_bias=c.bias, use_lin=lin,
-                            masked_bn=c.masked_bn)
+            return GNNBlock(
+                in_dim, hidden, emb, use_bias=c.bias, use_lin=lin,
+                masked_bn=c.masked_bn, gcn_name=c.gcn_name, act=c.activation,
+                use_bn=c.bn, fold_tail=c.fold_assign_tail,
+                gat_heads=c.gat_heads,
+            )
 
         self.embed1 = block(in1, c.hidden_dim, c.embedding_dim, False)
         self.pool1 = block(in1, c.assign_hidden_dim, assign1, True)
@@ -171,26 +171,35 @@ class CGCNet(nn.Module):
         self, graph: CellGraph, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
         c = self.cfg
-        if graph.capacity % 128:
-            raise ValueError(
-                f"node capacity {graph.capacity} must tile by 128 (the BSR "
-                "blocks and the fused assign head)"
-            )
         dtype = DTYPES[c.compute_dtype]
         x = graph.x.to(dtype)
         mask = graph.mask(dtype)
 
-        # ---- stage 1: sparse, BSR blocks ----
+        # ---- stage 1: sparse ----
         adj = make_stage1_adj(graph, c, dtype)
+        # fused assign softmax (B6): with the block path ('auto') and a
+        # capacity that tiles by 128; it folds BN into the lin, so it needs
+        # the folded tail and BN
+        fsm = _tri_state(
+            c.fused_assign_softmax,
+            isinstance(adj, EllAdjFactored) and adj.impl == "bsr",
+        )
+        fsm = fsm and c.fold_assign_tail and c.bn and graph.capacity % 128 == 0
+        # the deeper fold (B4 with B3/B5 in training): SAGE + relu only
+        fan = _tri_state(c.fused_assign_norm, fsm)
+        fan = fan and fsm and c.gcn_name == "SAGE" and c.activation == "relu"
         outs = []
-        embed, (s, s_t) = paired_blocks(
+        embed, assign_out = paired_blocks(
             self.embed1, self.pool1, x, adj, mask,
-            n_nodes=graph.n_nodes, pool_pre=True,
+            n_nodes=graph.n_nodes, pool_softmax="pre" if fan else fsm,
         )
         if c.jk:
             embed = self.jk1(embed)
         outs.append(masked_max_readout(embed, mask, c.masked_readout))
-        x, pooled_adj = diff_pool_from_s(embed, adj, s, s_t)
+        if fsm:
+            x, pooled_adj = diff_pool_from_s(embed, adj, *assign_out)
+        else:
+            x, pooled_adj, _ = diff_pool(embed, adj, assign_out, mask)
 
         # ---- stage 2: dense clusters ----
         if c.norm_adj:
@@ -215,8 +224,9 @@ class CGCNet(nn.Module):
 
         # ---- head (f32 whatever the compute dtype) ----
         h = torch.cat(outs, dim=-1).float()
+        act = activation(c.activation)
         for name in self.pred_names:
-            h = torch.relu(getattr(self, name)(h))
+            h = act(getattr(self, name)(h))
             if self.training and c.drop_out > 0:
                 h = dropout(h, c.drop_out, generator)
         return self.pred_out(h).float()

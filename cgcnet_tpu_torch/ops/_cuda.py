@@ -40,9 +40,13 @@ _SIGNATURES = {
     "cgc_bsr_build_blocks": [_P] * 5 + [_I] * 7 + [_P],
     # vals, blk_cols, x, out, B, R, M, NC, F, dtype, device, stream
     "cgc_bsr_matmul": [_P] * 4 + [_I] * 7 + [_P],
-    # x12, p, k12, k3f, const, n_nodes, rnorm, logits, s,
-    # B, N, F12, C, dtype, device, stream
+    # nbr, w, blk_cols, blk_mask, x, out, B, N, K, R, M, NC, F, dtype,
+    # device, stream
+    "cgc_bsr_gather_sum": [_P] * 6 + [_I] * 9 + [_P],
+    # x12, p (B4) or h3a (B6), k12, k3f, const, n_nodes, rnorm (B4's
+    # scratch; null for B6), logits, s, B, N, F12, C, dtype, device, stream
     "cgc_assign_head_pre": [_P] * 9 + [_I] * 6 + [_P],
+    "cgc_assign_head": [_P] * 9 + [_I] * 6 + [_P],
     # p, n_nodes, partial, out, B, N, C, tile_rows, dtype, device, stream
     "cgc_l2relu_stats": [_P] * 4 + [_I] * 6 + [_P],
     # p, dh, u, w, n_nodes, dp, B, N, C, dtype, device, stream

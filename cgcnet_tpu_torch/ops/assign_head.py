@@ -1,5 +1,6 @@
 """Fused assign head of the stage-1 pooling block: B4 (eval and train
-forward), B3 (BN batch statistics) and B5 (the tail's backward).
+forward), B3 (BN batch statistics), B5 (the tail's backward) and B6 (the
+head without the normalize step).
 
 For each row of the raw conv3 lin output ``p`` (pre-normalize, pre-relu):
 
@@ -15,9 +16,16 @@ h come from B3 (column sums of h and h^2 over real rows) and the tail's
 backward to ``p`` is B5; ``AssignTailTrain`` strings B3, the [C]-sized BN
 algebra and B4 together under one ``torch.autograd.Function``.
 
+B6 is the head of every other folded tail (GIN, GAT, a non-relu
+activation): its second operand is conv3's activation ``h3a`` itself, with
+bn3's affine already folded into K3f and const, so
+
+    S = softmax(x12 @ K12 + h3a @ K3f + const), rows >= n_nodes exactly 0.
+
 Replaces ``cgcnet_tpu/ops/pallas/assign_head.py``: ``_fwd_call_pre`` (B4),
-``_stats_call`` (B3), ``_bwd_call`` (B5), ``assign_head_softmax_pre``'s and
-``assign_tail_train``'s custom VJPs. Each kernel has a plain PyTorch version
+``_stats_call`` (B3), ``_bwd_call`` (B5), ``_fwd_call`` (B6),
+``assign_head_softmax_pre``'s, ``assign_tail_train``'s and
+``assign_head_softmax``'s custom VJPs. Each kernel has a plain PyTorch version
 with the same arguments; the wrapper uses it only for tensors on the CPU and
 launches ``csrc/assign_head.cu`` or ``csrc/assign_tail.cu`` for CUDA tensors.
 """
@@ -76,6 +84,59 @@ def assign_head_softmax_pre_plain(
     return s, s.transpose(1, 2)
 
 
+def _check_head(name, x12, p, k12, k3f, const, n_nodes) -> None:
+    b, n, c = p.shape
+    f12 = x12.shape[-1]
+    if (
+        x12.shape[:2] != (b, n) or k12.shape != (f12, c)
+        or k3f.shape != (c, c) or const.shape != (c,) or n_nodes.shape != (b,)
+    ):
+        raise ValueError(
+            f"{name}: shapes disagree: x12 {tuple(x12.shape)}, p/h3a "
+            f"{tuple(p.shape)}, k12 {tuple(k12.shape)}, k3f "
+            f"{tuple(k3f.shape)}, const {tuple(const.shape)}, n_nodes "
+            f"{tuple(n_nodes.shape)}"
+        )
+    if x12.dtype != p.dtype:
+        raise ValueError(f"{name}: x12 {x12.dtype} != p/h3a {p.dtype}")
+
+
+def _launch_head(pre: bool, x12, p, k12, k3f, const, n_nodes):
+    """S of the B4 (``pre``: p normalized on load) or B6 kernel on CUDA
+    tensors."""
+    entry = "cgc_assign_head_pre" if pre else "cgc_assign_head"
+    b, n, c = p.shape
+    dt = p.dtype
+    if dt not in _cuda.DTYPE_CODES:
+        raise ValueError(f"{entry}: unsupported dtype {dt}")
+    if n % 128:
+        raise ValueError(f"{entry}: N={n} must tile by 128")
+    x12, p = x12.contiguous(), p.contiguous()
+    k12 = k12.to(dt).contiguous()
+    k3f = k3f.to(dt).contiguous()
+    const = const.to(torch.float32).contiguous()
+    n_nodes = n_nodes.to(torch.int32).contiguous()
+    _cuda.require_cuda(entry, x12, p, k12, k3f, const, n_nodes)
+    s = torch.empty((b, n, c), dtype=dt, device=p.device)
+    # f32 logits: S itself holds them in f32 (normalized in place), bf16
+    # needs an f32 scratch so the softmax sees unrounded logits
+    logits = s if dt == torch.float32 else torch.empty(
+        (b, n, c), dtype=torch.float32, device=p.device
+    )
+    # B4's per-row 1/||p|| scratch; B6 reads none and is given a null pointer
+    rnorm = (torch.empty((b * n,), dtype=torch.float32, device=p.device)
+             if pre else None)
+    _cuda.launch(
+        entry,
+        x12.data_ptr(), p.data_ptr(), k12.data_ptr(), k3f.data_ptr(),
+        const.data_ptr(), n_nodes.data_ptr(),
+        rnorm.data_ptr() if pre else None,
+        logits.data_ptr(), s.data_ptr(), b, n, x12.shape[-1], c,
+        _cuda.DTYPE_CODES[dt], p.device.index, _cuda.stream_of(p),
+    )
+    return s
+
+
 def assign_head_softmax_pre(
     x12: torch.Tensor,
     p: torch.Tensor,
@@ -85,54 +146,62 @@ def assign_head_softmax_pre(
     n_nodes: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B4. Same contract as :func:`assign_head_softmax_pre_plain`."""
-    b, n, c = p.shape
-    f12 = x12.shape[-1]
-    if (
-        x12.shape[:2] != (b, n) or k12.shape != (f12, c)
-        or k3f.shape != (c, c) or const.shape != (c,) or n_nodes.shape != (b,)
-    ):
-        raise ValueError(
-            "assign_head_softmax_pre: shapes disagree: x12 "
-            f"{tuple(x12.shape)}, p {tuple(p.shape)}, k12 {tuple(k12.shape)}, "
-            f"k3f {tuple(k3f.shape)}, const {tuple(const.shape)}, "
-            f"n_nodes {tuple(n_nodes.shape)}"
-        )
-    if x12.dtype != p.dtype:
-        raise ValueError(
-            f"assign_head_softmax_pre: x12 {x12.dtype} != p {p.dtype}"
-        )
+    _check_head("assign_head_softmax_pre", x12, p, k12, k3f, const, n_nodes)
     if p.device.type == "cpu":
         return assign_head_softmax_pre_plain(x12, p, k12, k3f, const, n_nodes)
-    dt = p.dtype
-    if dt not in _cuda.DTYPE_CODES:
-        raise ValueError(f"assign_head_softmax_pre: unsupported dtype {dt}")
-    if n % 128:
-        raise ValueError(f"assign_head_softmax_pre: N={n} must tile by 128")
-    x12, p = x12.contiguous(), p.contiguous()
-    k12 = k12.to(dt).contiguous()
-    k3f = k3f.to(dt).contiguous()
-    const = const.to(torch.float32).contiguous()
-    n_nodes = n_nodes.to(torch.int32).contiguous()
-    _cuda.require_cuda("assign_head_softmax_pre", x12, p, k12, k3f, const, n_nodes)
-    s = torch.empty((b, n, c), dtype=dt, device=p.device)
-    rnorm = torch.empty((b * n,), dtype=torch.float32, device=p.device)
-    # f32 logits: S itself holds them in f32 (normalized in place), bf16
-    # needs an f32 scratch so the softmax sees unrounded logits
-    logits = s if dt == torch.float32 else torch.empty(
-        (b, n, c), dtype=torch.float32, device=p.device
-    )
-    _cuda.launch(
-        "cgc_assign_head_pre",
-        x12.data_ptr(), p.data_ptr(), k12.data_ptr(), k3f.data_ptr(),
-        const.data_ptr(), n_nodes.data_ptr(), rnorm.data_ptr(),
-        logits.data_ptr(), s.data_ptr(), b, n, f12, c, _cuda.DTYPE_CODES[dt],
-        p.device.index, _cuda.stream_of(p),
-    )
+    s = _launch_head(True, x12, p, k12, k3f, const, n_nodes)
     assign_head_softmax_pre.launches += 1
     return s, s.transpose(1, 2)
 
 
 assign_head_softmax_pre.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B6: fused head without the normalize step
+# ---------------------------------------------------------------------------
+
+def assign_head_softmax_plain(
+    x12: torch.Tensor,      # [B, N, F12] layers 1-2 concat
+    h3a: torch.Tensor,      # [B, N, C]   conv3 activation (pre-BN)
+    k12: torch.Tensor,      # [F12, C]
+    k3f: torch.Tensor,      # [C, C]      BN-folded lin rows for conv3
+    const: torch.Tensor,    # [C] f32
+    n_nodes: torch.Tensor,  # i32[B]
+) -> torch.Tensor:
+    """S [B, N, C] = softmax(x12 @ K12 + h3a @ K3f + const) in f32 (the
+    kernels cast to h3a's dtype, f32 accumulation), rows >= n_nodes exactly
+    0, in h3a's dtype. S^T is ``S.transpose(1, 2)``."""
+    dt = h3a.dtype
+    logits = (
+        x12.float() @ k12.to(dt).float()
+        + h3a.float() @ k3f.to(dt).float()
+        + const.float()
+    )
+    s = torch.softmax(logits, dim=-1)
+    return (s * _prefix_mask(n_nodes, h3a.shape[1])[..., None]).to(dt)
+
+
+def assign_head_softmax(
+    x12: torch.Tensor,
+    h3a: torch.Tensor,
+    k12: torch.Tensor,
+    k3f: torch.Tensor,
+    const: torch.Tensor,
+    n_nodes: torch.Tensor,
+) -> torch.Tensor:
+    """B6. Same contract as :func:`assign_head_softmax_plain`; launches
+    ``csrc/assign_head.cu`` (without B4's normalize step) for CUDA
+    tensors."""
+    _check_head("assign_head_softmax", x12, h3a, k12, k3f, const, n_nodes)
+    if h3a.device.type == "cpu":
+        return assign_head_softmax_plain(x12, h3a, k12, k3f, const, n_nodes)
+    s = _launch_head(False, x12, h3a, k12, k3f, const, n_nodes)
+    assign_head_softmax.launches += 1
+    return s
+
+
+assign_head_softmax.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +322,7 @@ assign_tail_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# autograd: eval-mode head (B4) and the training tail (B3 + B4, B5)
+# autograd: the heads (B4, B6) and the training tail (B3 + B4, B5)
 # ---------------------------------------------------------------------------
 
 def _softmax_vjp(s: torch.Tensor, ds: torch.Tensor):
@@ -297,6 +366,29 @@ class AssignHeadSoftmaxPre(torch.autograd.Function):
         rd = torch.sum(dh * h32, dim=-1, keepdim=True)
         dp = (pf > 0) * rnorm * dh - rnorm * rnorm * pf * rd
         return dx12, dp.to(p.dtype), dk12, dk3f, dconst, None
+
+
+class AssignHeadSoftmax(torch.autograd.Function):
+    """B6 with the backward of ``assign_head_softmax``'s custom VJP
+    (``_ah_bwd``) in plain tensor algebra. Returns S only; the caller takes
+    ``S.transpose(1, 2)`` itself so autograd adds the S^T cotangent. bn3's
+    batch moments reach this head through k3f and const, so autograd carries
+    their gradient back to h3a."""
+
+    @staticmethod
+    def forward(ctx, x12, h3a, k12, k3f, const, n_nodes):
+        s = assign_head_softmax(x12, h3a, k12, k3f, const, n_nodes)
+        ctx.save_for_backward(x12, h3a, k12, k3f, s)
+        return s
+
+    @staticmethod
+    def backward(ctx, ds):
+        x12, h3a, k12, k3f, s = ctx.saved_tensors
+        dl, dl32 = _softmax_vjp(s, ds)
+        dx12, dk12, dconst = _head_grads(x12, k12, dl, dl32)
+        dh3a = dl @ k3f.to(dl.dtype).t()
+        dk3f = torch.einsum("bnc,bnd->cd", h3a.float(), dl.float()).to(k3f.dtype)
+        return dx12, dh3a, dk12, dk3f, dconst, None
 
 
 def tail_algebra(ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps):

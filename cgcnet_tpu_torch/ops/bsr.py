@@ -1,11 +1,13 @@
-"""Block-sparse (BSR) stage-1 aggregation: host metadata, B1 and B2.
+"""Block-sparse (BSR) stage-1 aggregation: host metadata, B1, B2 and B7.
 
 Nuclei are spatially sorted by the loader, so each 128-row tile of the
 radius graph touches only a few 128-column tiles. The host lists those
 column tiles per row tile (``bsr_block_meta``); on the device the dense
 128x128 blocks of A are built once per batch (B1, ``bsr_build_blocks``) and
 every stage-1 matvec is then a block-sparse matmul over them (B2,
-``bsr_matmul``).
+``bsr_matmul``). B7 (``bsr_gather_sum``) builds each block from the ELL
+inside the kernel and multiplies it at once, for an operator whose blocks
+were not built beforehand.
 
 Each device function has a plain PyTorch version of the same signature
 (``*_plain``). The wrapper takes the plain version only for tensors that lie
@@ -13,7 +15,7 @@ on the CPU; for CUDA tensors it launches the hand-written kernel in
 ``csrc/`` or raises. ``launches`` on each wrapper counts kernel launches.
 
 Replaces ``cgcnet_tpu/ops/pallas/bsr_kernel.py`` (bsr_blocks_needed,
-bsr_block_meta, bsr_build_blocks, bsr_matmul).
+bsr_block_meta, bsr_build_blocks, bsr_matmul, bsr_gather_sum).
 """
 
 from __future__ import annotations
@@ -211,3 +213,66 @@ def bsr_matmul(
 
 
 bsr_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B7: block-sparse gather-sum, blocks built on the fly
+# ---------------------------------------------------------------------------
+
+def bsr_gather_sum_plain(
+    nbr: torch.Tensor,       # i32[B, N, K]
+    w: torch.Tensor,         # [B, N, K] edge weights (mask folded in)
+    blk_cols: torch.Tensor,  # i32[B, R, M]
+    blk_mask: torch.Tensor,  # i32/f32[B, R, M]
+    x: torch.Tensor,         # [B, NC, F]
+) -> torch.Tensor:
+    """out[b, i] = sum_k w[b, i, k] * x[b, nbr[b, i, k]] through the blocks:
+    each block's f32 entries (slots summed in order, as B1 builds them) are
+    rounded to x's dtype, the products accumulate in f32 and the sum is
+    rounded once to x's dtype (the TPU's resident variant; its streamed
+    variant rounds after every slot in bf16). Needs every edge's column
+    tile listed in ``blk_cols`` for its row tile."""
+    vals = bsr_build_blocks_plain(nbr, w, blk_cols, blk_mask, x.dtype)
+    return bsr_matmul_plain(vals, blk_cols, x)
+
+
+def bsr_gather_sum(
+    nbr: torch.Tensor,
+    w: torch.Tensor,
+    blk_cols: torch.Tensor,
+    blk_mask: torch.Tensor,
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """B7. Same contract as :func:`bsr_gather_sum_plain`; launches
+    ``csrc/bsr_gather.cu`` for CUDA tensors."""
+    b, n, k = nbr.shape
+    if n % TILE or blk_cols.shape[:2] != (b, n // TILE) or x.shape[0] != b:
+        raise ValueError(
+            f"bsr_gather_sum: N={n} must tile by {TILE}, blk_cols "
+            f"{tuple(blk_cols.shape)} must be [B, N/{TILE}, M] and x "
+            f"{tuple(x.shape)} [B, NC, F]"
+        )
+    if x.device.type == "cpu":
+        return bsr_gather_sum_plain(nbr, w, blk_cols, blk_mask, x)
+    if x.dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f"bsr_gather_sum: unsupported dtype {x.dtype}")
+    r, m = blk_cols.shape[1], blk_cols.shape[2]
+    nc, f = x.shape[1], x.shape[2]
+    nbr = nbr.to(torch.int32).contiguous()
+    w = w.to(torch.float32).contiguous()
+    blk_cols = blk_cols.to(torch.int32).contiguous()
+    blk_mask = blk_mask.to(torch.int32).contiguous()
+    x = x.contiguous()
+    _cuda.require_cuda("bsr_gather_sum", nbr, w, blk_cols, blk_mask, x)
+    out = torch.empty((b, n, f), dtype=x.dtype, device=x.device)
+    _cuda.launch(
+        "cgc_bsr_gather_sum",
+        nbr.data_ptr(), w.data_ptr(), blk_cols.data_ptr(), blk_mask.data_ptr(),
+        x.data_ptr(), out.data_ptr(), b, n, k, r, m, nc, f,
+        _cuda.DTYPE_CODES[x.dtype], x.device.index, _cuda.stream_of(x),
+    )
+    bsr_gather_sum.launches += 1
+    return out
+
+
+bsr_gather_sum.launches = 0

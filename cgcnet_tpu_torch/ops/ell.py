@@ -1,19 +1,118 @@
-"""Stage-1 sparse aggregation over precomputed blocks, and the dense
-adaptive renormalization of the pooled stages.
+"""Sparse neighbourhood aggregation over padded ELL graphs, and the
+adaptive renormalization of the adjacency.
 
-Port of the parts of ``cgcnet_tpu/ops/ell.py`` that the canonical path
-runs: ``bsr_matmul_precomp`` (A @ x with A's block values, weights folded
-in, built once per batch by B1; its backward B_off^T (scale*g) + self_w*g
-over the binary transpose blocks) and ``renorm_dense``.
+    out[b, i, :] = sum_k w[b, i, k] * x[b, nbr[b, i, k], :]
+
+Port of ``cgcnet_tpu/ops/ell.py``:
+
+- ``ell_gather_sum`` and ``ell_spmm_factored``: an index gather per slot
+  and a weighted sum over the K slots — the path of a batch without BSR
+  metadata. The JAX package computes it with XLA gathers, outside any
+  Pallas kernel, so it is plain PyTorch here on every device. The factored
+  form's backward is a gather over the transpose tables, not a scatter;
+- ``bsr_spmm_factored``: the same operator through B7 (blocks built from
+  the ELL inside the kernel), both directions;
+- ``bsr_matmul_precomp``: A @ x with A's block values, weights folded in,
+  built once per batch by B1; its backward B_off^T (scale*g) + self_w*g
+  over the binary transpose blocks (B2 both ways);
+- ``renorm_ell``, ``renorm_dense`` (reference ``_re_norm_adj``,
+  model/network.py:183-191) and ``ell_rowsum``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cgcnet_tpu_torch.ops.bsr import bsr_matmul
+from cgcnet_tpu_torch.ops.bsr import bsr_gather_sum, bsr_matmul
 
 EPS = 1e-15  # reference model/network.py:8
+
+
+def ell_gather_sum(
+    nbr: torch.Tensor,  # i32[B, N, K] (padded slots point in bounds)
+    w: torch.Tensor,    # [B, N, K] edge weights, 0 on padded slots
+    x: torch.Tensor,    # [B, N, F]
+) -> torch.Tensor:
+    """Weighted neighbour sum out[b, i] = sum_k w[b, i, k] x[b, nbr[b, i, k]]:
+    one gather of x per slot, summed in slot order in f32 and stored in x's
+    dtype. Autograd's backward is a scatter-add over ``nbr``."""
+    b, _, k = nbr.shape
+    bidx = torch.arange(b, device=x.device)[:, None]
+    idx = nbr.long()
+    out = None
+    for kk in range(k):
+        term = w[..., kk, None].float() * x[bidx, idx[..., kk]].float()
+        out = term if out is None else out + term
+    return out.to(x.dtype)
+
+
+def _factored(gathered, scale, self_w, x):
+    return scale[..., None] * gathered + self_w[..., None] * x
+
+
+class EllSpmmFactored(torch.autograd.Function):
+    """A @ x for A = diag(scale)·B_off + diag(self_w) by ELL gathers; the
+    backward A^T g = B_off^T (scale*g) + self_w*g gathers over the
+    transpose tables (``nbr_t``, ``off_mask_t``) instead of scattering."""
+
+    @staticmethod
+    def forward(ctx, nbr, off_mask, nbr_t, off_mask_t, scale, self_w, x):
+        ctx.save_for_backward(nbr_t, off_mask_t, scale, self_w)
+        return _factored(ell_gather_sum(nbr, off_mask, x), scale, self_w, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        nbr_t, off_mask_t, scale, self_w = ctx.saved_tensors
+        sg = scale[..., None] * g
+        dx = ell_gather_sum(nbr_t, off_mask_t, sg) + self_w[..., None] * g
+        return None, None, None, None, None, None, dx
+
+
+def ell_spmm_factored(
+    nbr: torch.Tensor,         # i32[B, N, K]
+    off_mask: torch.Tensor,    # [B, N, K] binary, self slots zeroed
+    nbr_t: torch.Tensor,       # i32[B, N, KT] in-edge lists
+    off_mask_t: torch.Tensor,  # [B, N, KT]
+    scale: torch.Tensor,       # [B, N] row scales
+    self_w: torch.Tensor,      # [B, N] diagonal weights
+    x: torch.Tensor,           # [B, N, F]
+) -> torch.Tensor:
+    """A @ x for A = diag(scale)·B_off + diag(self_w), gathers both ways
+    (:class:`EllSpmmFactored`)."""
+    return EllSpmmFactored.apply(nbr, off_mask, nbr_t, off_mask_t, scale,
+                                 self_w, x)
+
+
+class BsrSpmmFactored(torch.autograd.Function):
+    """:class:`EllSpmmFactored`'s operator through B7: one launch forward
+    on (nbr, off_mask, blk_cols), one backward on the transpose tables."""
+
+    @staticmethod
+    def forward(ctx, nbr, off_mask, blk_cols, blk_mask, nbr_t, off_mask_t,
+                blk_cols_t, blk_mask_t, scale, self_w, x):
+        ctx.save_for_backward(nbr_t, off_mask_t, blk_cols_t, blk_mask_t, scale,
+                              self_w)
+        gathered = bsr_gather_sum(nbr, off_mask, blk_cols, blk_mask, x)
+        return _factored(gathered, scale, self_w, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        nbr_t, off_mask_t, blk_cols_t, blk_mask_t, scale, self_w = ctx.saved_tensors
+        sg = scale[..., None] * g
+        dx = (bsr_gather_sum(nbr_t, off_mask_t, blk_cols_t, blk_mask_t, sg)
+              + self_w[..., None] * g)
+        return (None,) * 10 + (dx,)
+
+
+def bsr_spmm_factored(
+    nbr, off_mask, blk_cols, blk_mask, nbr_t, off_mask_t, blk_cols_t,
+    blk_mask_t, scale, self_w, x,
+) -> torch.Tensor:
+    """Same contract as :func:`ell_spmm_factored` with the block metadata of
+    both directions; B7 both ways (:class:`BsrSpmmFactored`)."""
+    return BsrSpmmFactored.apply(nbr, off_mask, blk_cols, blk_mask, nbr_t,
+                                 off_mask_t, blk_cols_t, blk_mask_t, scale,
+                                 self_w, x)
 
 
 class BsrMatmulPrecomp(torch.autograd.Function):
@@ -57,6 +156,27 @@ def bsr_matmul_precomp(
                                   self_w, x)
 
 
+def renorm_ell(
+    nbr: torch.Tensor,       # i32[B, N, K]
+    nbr_mask: torch.Tensor,  # [B, N, K]
+    n_nodes: torch.Tensor,   # i32[B]
+    p: float,
+) -> torch.Tensor:
+    """Adaptive-GraphSAGE edge weights over ELL (``_re_norm_adj`` on a
+    binary adjacency): ``p`` on self slots, ``(1-p)/deg_offdiag`` on real
+    off-diagonal slots, 0 on padding and on rows past ``n_nodes``."""
+    n = nbr.shape[1]
+    row = torch.arange(n, device=nbr.device, dtype=nbr.dtype)[None, :, None]
+    is_self = (nbr == row).to(nbr_mask.dtype) * nbr_mask
+    off = nbr_mask * (1.0 - is_self)
+    deg = torch.sum(off, dim=-1, keepdim=True)
+    w = off * (1.0 - p) / (deg + EPS) + is_self * p
+    node_ok = (
+        torch.arange(n, device=nbr.device)[None, :] < n_nodes[:, None]
+    ).to(w.dtype)
+    return w * node_ok[:, :, None]
+
+
 def renorm_dense(adj: torch.Tensor, p: float) -> torch.Tensor:
     """Dense adaptive renormalization (reference ``_re_norm_adj``,
     model/network.py:183-191): zero the diagonal, row-normalize with
@@ -68,3 +188,8 @@ def renorm_dense(adj: torch.Tensor, p: float) -> torch.Tensor:
     adj = torch.where(eye, zero, adj)
     new_adj = adj / (torch.sum(adj, dim=-1, keepdim=True) + EPS) * (1.0 - p)
     return torch.where(eye, torch.full_like(zero, p), new_adj)
+
+
+def ell_rowsum(w: torch.Tensor) -> torch.Tensor:
+    """[B, N, K] -> [B, N] row sums (the degree for binary weights)."""
+    return torch.sum(w, dim=-1)

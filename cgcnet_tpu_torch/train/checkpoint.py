@@ -9,7 +9,10 @@ serving checkpoints. ``state_dict_from_flax`` turns the JAX package's
 ``flax.serialization.msgpack_restore`` returns them) into this package's
 ``state_dict``: [in, out] kernels become [out, in] weights, BN
 ``scale``/``mean``/``var`` become ``weight``/``running_mean``/
-``running_var``, and the JK LSTM keeps torch's own names.
+``running_var``, and the JK LSTM keeps torch's own names. Every other path
+keeps the JAX package's module names (SAGE ``lin``, GIN ``mlp_0`` and
+``mlp_1``, GAT ``q``, ``k`` and ``v``; GAT's head count changes no
+parameter).
 """
 
 from __future__ import annotations

@@ -4,12 +4,14 @@ of one canonical training step.
 
     python3 scripts/profile_torch_forward.py [--steps 5]           # forward
     python3 scripts/profile_torch_forward.py --train [--steps 5]   # train step
+    python3 scripts/profile_torch_forward.py --train model.gcn_name=GIN
 
 Needs one GPU. Builds the same synthetic canonical batch and seeded model
-as ``chip_smoke.py`` (B=4 graphs padded to N=5760, C=1140, f32), runs a few
+as ``chip_smoke.py`` (B=4 graphs padded to N=5760, C=1140, f32; config
+overrides such as ``model.gcn_name=GIN`` select another model), runs a few
 forwards (or optimizer steps through ``train.loop.make_train_step``) under
 ``torch.profiler`` and prints, for the window: the device time per kernel
-name (top 25), the share of the port's own kernels (B1-B5) and of
+name (top 25), the share of the port's own kernels (B1-B7) and of
 everything else, the device-busy share of the wall time (kernel time over
 wall time, which the profiler itself lengthens), the wall time per
 step without the profiler (CUDA events), and the card's name and power
@@ -28,7 +30,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 OWN_KERNELS = ("build_blocks_kernel", "bsr_matmul_kernel", "rnorm_kernel",
                "gemm_kernel", "softmax_kernel", "stats_partial_kernel",
-               "stats_reduce_kernel", "tail_bwd_kernel")
+               "stats_reduce_kernel", "tail_bwd_kernel", "bsr_gather_kernel")
 
 
 def main() -> int:
@@ -36,6 +38,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile optimizer steps instead of eval forwards")
+    ap.add_argument("overrides", nargs="*",
+                    help="config overrides: section.key=value")
     args = ap.parse_args()
     import torch
     from torch.autograd import DeviceType
@@ -64,7 +68,8 @@ def main() -> int:
         generate_dataset(str(root), patches_per_image=2, images_per_grade=2,
                          n_nodes=chip_smoke.DATA_NODES, seed=0)
         cfg = predict.serving_config(
-            [f"data.root={root}", f"data.max_num_nodes={chip_smoke.DATA_NODES[1]}"]
+            [f"data.root={root}", f"data.max_num_nodes={chip_smoke.DATA_NODES[1]}",
+             *args.overrides]
         )
         model = predict.build_model(
             cfg, CGCNet(cfg.model, torch.Generator().manual_seed(1234)).state_dict(),
@@ -104,7 +109,8 @@ def main() -> int:
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     own = sum(r[1] for r in rows if any(k in r[0] for k in OWN_KERNELS))
-    print(f"card: {smi}; batch x {tuple(graph.x.shape)}, {args.steps} {what}")
+    print(f"card: {smi}; {cfg.model.gcn_name}, batch x {tuple(graph.x.shape)}, "
+          f"{args.steps} {what}")
     print(f"without the profiler: {step_ms:.3f} ms per step (median of 10, "
           "CUDA events)")
     if total == 0:
@@ -113,7 +119,7 @@ def main() -> int:
     print(f"wall {wall_us / args.steps / 1e3:.3f} ms/step, device "
           f"{total / args.steps / 1e3:.3f} ms/step, busy share "
           f"{total / wall_us:.3f}")
-    print(f"own kernels (B1-B5) {own / args.steps / 1e3:.3f} ms/step, "
+    print(f"own kernels (B1-B7) {own / args.steps / 1e3:.3f} ms/step, "
           f"everything else {(total - own) / args.steps / 1e3:.3f} ms/step, "
           f"{sum(r[2] for r in rows) // args.steps} device events/step")
     for name, us, count in rows[:25]:

@@ -1,6 +1,6 @@
-"""PyTorch port, card only: each hand-written CUDA kernel (B1, B2, B3, B4,
-B5) against its plain PyTorch version on the same CUDA tensors, and the
-backward Functions around them against the CPU, at small shapes.
+"""PyTorch port, card only: each hand-written CUDA kernel (B1-B7) against
+its plain PyTorch version on the same CUDA tensors, and the backward
+Functions around them against the CPU, at small shapes.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch; skips without a CUDA device. On the card:
@@ -8,8 +8,8 @@ only PyTorch; skips without a CUDA device. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances are fractions of max|plain|: f32 — B1 exact (same f32 sums in
-the same slot order), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4 (sums in another
-order); bf16 — the two roundings of the stored result may land one bf16
+the same slot order), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4, B6 1e-5, B7
+1e-4 (sums in another order); bf16 — the two roundings of the stored result may land one bf16
 step apart, up to 2^-7 of the value, so 2^-6. Gradients, card vs CPU:
 1e-4 of max|grad| (f32 sums in another order through the same formulas).
 """
@@ -20,7 +20,7 @@ import torch
 
 from cgcnet_tpu_torch.ops import assign_head as ah
 from cgcnet_tpu_torch.ops import bsr
-from cgcnet_tpu_torch.ops.ell import bsr_matmul_precomp
+from cgcnet_tpu_torch.ops.ell import bsr_matmul_precomp, bsr_spmm_factored
 from cgcnet_tpu_torch.ops.knn import radius_knn_np
 
 pytestmark = pytest.mark.cuda
@@ -189,3 +189,90 @@ def test_backward_matches_cpu(device):
     got = run_bsr(device)
     assert bsr.bsr_matmul.launches == launches + 2  # forward and backward
     _grads_close(got, run_bsr("cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b6_b7_match_plain(device, dtype):
+    """B6 at a C that is no multiple of 128, rows past n_nodes exactly 0;
+    B7 at every width class against its plain version and against B1 -> B2
+    on the same blocks (the same f32 block sums, rounded alike)."""
+    tol_head = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    tol_mm = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    gen = torch.Generator(device=device).manual_seed(3)
+    n_nodes = torch.tensor([1024 - 37, 517], dtype=torch.int32, device=device)
+    rows = torch.arange(1024, device=device)[None, :] < n_nodes.long()[:, None]
+    c, f12 = 204, 16
+    x12 = (torch.randn(2, 1024, f12, device=device, generator=gen)
+           * rows[..., None]).to(dtype)
+    h3a = (torch.randn(2, 1024, c, device=device, generator=gen)
+           * rows[..., None]).to(dtype)
+    k12 = torch.randn(f12, c, device=device, generator=gen)
+    k3f = torch.randn(c, c, device=device, generator=gen) * 0.2
+    const = torch.randn(c, device=device, generator=gen)
+    launches = ah.assign_head_softmax.launches
+    s = ah.assign_head_softmax(x12, h3a, k12, k3f, const, n_nodes)
+    assert ah.assign_head_softmax.launches == launches + 1
+    assert s.dtype == dtype
+    _close(s, ah.assign_head_softmax_plain(x12, h3a, k12, k3f, const, n_nodes),
+           tol_head)
+    assert not s[~rows].any()
+
+    nbr, w, cols, masks, _ = (t.to(device) for t in _graph(seed=4))
+    off = (w > 0).float() * (nbr != torch.arange(1024, device=device)[None, :, None])
+    for f, extra in ((18, 0), (40, 0), (300, 0), (40, 128)):
+        x = torch.randn(2, 1024 + extra, f, device=device, generator=gen).to(dtype)
+        for weights in (w, off):
+            launches = bsr.bsr_gather_sum.launches
+            out = bsr.bsr_gather_sum(nbr, weights, cols, masks, x)
+            assert bsr.bsr_gather_sum.launches == launches + 1
+            assert out.shape == (2, 1024, f) and out.dtype == dtype
+            _close(out, bsr.bsr_gather_sum_plain(nbr, weights, cols, masks, x),
+                   tol_mm)
+            vals = bsr.bsr_build_blocks(nbr, weights, cols, masks, dtype)
+            _close(out, bsr.bsr_matmul(vals, cols, x), tol_mm)
+
+
+def test_b6_b7_backward_matches_cpu(device):
+    """AssignHeadSoftmax (B6 forward) and BsrSpmmFactored (B7 both ways) on
+    the card against the same Functions on the CPU."""
+    rng = np.random.default_rng(5)
+    b, n, f12, c = 2, 1024, 16, 204
+    n_nodes = np.array([1000, 613], np.int32)
+    mask = (np.arange(n)[None] < n_nodes[:, None]).astype(np.float32)[..., None]
+    arrays = [
+        rng.normal(size=(b, n, f12)).astype(np.float32) * mask,
+        rng.normal(size=(b, n, c)).astype(np.float32) * mask,
+        rng.normal(size=(f12, c)).astype(np.float32),
+        (rng.normal(size=(c, c)) * 0.2).astype(np.float32),
+        rng.normal(size=(c,)).astype(np.float32),
+    ]
+    ct = rng.normal(size=(b, n, c)).astype(np.float32)
+
+    def run(dev):
+        ins = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrays]
+        s = ah.AssignHeadSoftmax.apply(*ins, torch.from_numpy(n_nodes).to(dev))
+        torch.sum(s * torch.from_numpy(ct).to(dev)).backward()
+        return [s.detach()] + [t.grad for t in ins]
+
+    _grads_close(run(device), run("cpu"))
+
+    nbr, w, cols, masks, _ = _graph(seed=6)
+    off = (w > 0).float()
+    scale = torch.rand(2, 1024)
+    self_w = torch.rand(2, 1024)
+    x0 = torch.randn(2, 1024, 40)
+    g0 = torch.randn(2, 1024, 40)
+
+    def run_b7(dev):
+        # the forward lists stand in for the transpose tables (card and CPU
+        # get the same ones)
+        args = [t.to(dev) for t in (nbr, off, cols, masks)]
+        x = x0.to(dev).requires_grad_(True)
+        out = bsr_spmm_factored(*args, *args, scale.to(dev), self_w.to(dev), x)
+        torch.sum(out * g0.to(dev)).backward()
+        return [out.detach(), x.grad]
+
+    launches = bsr.bsr_gather_sum.launches
+    got = run_b7(device)
+    assert bsr.bsr_gather_sum.launches == launches + 2  # forward and backward
+    _grads_close(got, run_b7("cpu"))
