@@ -8,9 +8,12 @@ function that the CPU path runs. The JAX package stays the reference; this
 package imports nothing from it.
 
 Ported so far: the serving path (``cli/predict.py``: dataset, loader, eval
-forward of the canonical SAGE/JK/norm_adj model, image-level metric) and the
+forward of the canonical SAGE/JK/norm_adj model, image-level metric), the
 training path (``cli/train.py``: training-mode forward and backward, torch
-optimizers with StepLR, ``Trainer`` with validation, checkpoints, resume).
+optimizers with StepLR, ``Trainer`` with validation, checkpoints, resume),
+every model option of the patch path (GIN, GAT, the gather path) and the
+whole-slide path on one shard (``cli/slide.py``, ``parallel/``: serving,
+fine-tuning and the chunked capacity tail of an unsampled slide).
 """
 
 from cgcnet_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig

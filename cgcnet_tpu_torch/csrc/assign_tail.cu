@@ -22,6 +22,16 @@
 // and the second read of the tile hits L1/L2. Tiles wholly past n_nodes are
 // neither computed nor summed (they add exactly 0).
 //
+// B9b replaces cgcnet_tpu/ops/pallas/assign_head.py: _stats_call_lin
+// (_stats_kernel_lin): B3 with conv3's lin inside the tile — p is never
+// stored, each value is formed where it is read from the tile's x3 rows
+// (staged in shared memory) and kc3 / b3: p = round_T(round_T(x3 . kc3[:,c])
+// + b3[c]). A compile-time switch (LIN) of B3's kernel: same tiles, same
+// partials, same reduction, so the sums come in the same fixed order and
+// repeat bit for bit. Bound: operations — p is formed twice per element
+// (the row norm, then the sums), 4*N*C*F3 (~9 GFLOP at 100k nuclei, F3 =
+// 20) on the f32 CUDA cores; x3 is read once (~4 MB in bf16).
+//
 // B5 replaces cgcnet_tpu/ops/pallas/assign_head.py: _bwd_call (_bwd_kernel):
 //   hs     = rmask * h
 //   dh_tot = dh + rmask * (u + 2 * hs * w)
@@ -62,18 +72,55 @@ __device__ __forceinline__ int tile_rows(long long row0, int N,
                                             : kStatsRows);
 }
 
+// The conv3 lin operands of B9b: x3 [rows, F3], kc3 [F3, C], b3 [C].
 template <typename T>
+struct Lin {
+  const T* x3;
+  const T* kc3;
+  const T* b3;
+  int F3;
+};
+
+// The stats input at (flat row, column): p itself, or (LIN) formed from
+// the row's x3 staged at xs.
+template <typename T, bool LIN>
+__device__ __forceinline__ float p_at(const T* __restrict__ p,
+                                      const Lin<T>& lin, const float* xs,
+                                      long long row, int C, int c) {
+  if (LIN) return cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c);
+  return cgc::to_f32(p[row * C + c]);
+}
+
+template <typename T, bool LIN>
 __global__ void __launch_bounds__(kThreads)
-    stats_partial_kernel(const T* __restrict__ p,
+    stats_partial_kernel(const T* __restrict__ p, Lin<T> lin,
                          const int* __restrict__ n_nodes,
                          float* __restrict__ partial, int N, int C) {
   __shared__ float s_rn[kStatsRows];
+  extern __shared__ float s_x3[];  // LIN: [kStatsRows][F3]
   const long long row0 = static_cast<long long>(blockIdx.x) * kStatsRows;
   const int rows = tile_rows(row0, N, n_nodes);
   if (rows == 0) return;  // skipped by the reduction as well
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  if (LIN) {
+    for (int e = t; e < rows * lin.F3; e += kThreads)
+      s_x3[e] = cgc::to_f32(lin.x3[row0 * lin.F3 + e]);
+    __syncthreads();
+  }
   for (int r = warp; r < rows; r += kWarps) {
-    const float rn = row_rnorm(p + (row0 + r) * C, C, lane);
+    float rn;
+    if (LIN) {
+      const float* xs = s_x3 + r * lin.F3;
+      float ss = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float v = cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c);
+        ss = fmaf(v, v, ss);
+      }
+      ss = cgc::warp_sum(ss);
+      rn = 1.f / fmaxf(sqrtf(ss), 1e-12f);
+    } else {
+      rn = row_rnorm(p + (row0 + r) * C, C, lane);
+    }
     if (lane == 0) s_rn[r] = rn;
   }
   // rows past the tile's last real row give h = 0, an exact no-op below
@@ -88,7 +135,10 @@ __global__ void __launch_bounds__(kThreads)
       float v[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k)
-        v[k] = r0 + k < rows ? cgc::to_f32(p[(row0 + r0 + k) * C + c]) : 0.f;
+        v[k] = r0 + k < rows
+                   ? p_at<T, LIN>(p, lin, s_x3 + (r0 + k) * (LIN ? lin.F3 : 0),
+                                  row0 + r0 + k, C, c)
+                   : 0.f;
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const float h = cgc::round_to<T>(fmaxf(v[k], 0.f) * s_rn[r0 + k]);
@@ -170,14 +220,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch_stats(const void* p, const int* n_nodes, float* partial,
-                         float* out, int B, int N, int C, cudaStream_t st) {
+template <typename T, bool LIN>
+cudaError_t launch_stats(const void* p, const void* x3, const void* kc3,
+                         const void* b3, int F3, const int* n_nodes,
+                         float* partial, float* out, int B, int N, int C,
+                         cudaStream_t st) {
   const int tiles = static_cast<int>(static_cast<long long>(B) * N / kStatsRows);
   if (C == 0) return cudaGetLastError();
+  const Lin<T> lin{static_cast<const T*>(x3), static_cast<const T*>(kc3),
+                   static_cast<const T*>(b3), LIN ? F3 : 0};
+  const size_t smem = sizeof(float) * kStatsRows * lin.F3;
+  if (LIN) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stats_partial_kernel<T, LIN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   if (tiles > 0)
-    stats_partial_kernel<T><<<tiles, kThreads, 0, st>>>(
-        static_cast<const T*>(p), n_nodes, partial, N, C);
+    stats_partial_kernel<T, LIN><<<tiles, kThreads, smem, st>>>(
+        static_cast<const T*>(p), lin, n_nodes, partial, N, C);
   stats_reduce_kernel<<<(C + 31) / 32, kThreads, 0, st>>>(
       partial, n_nodes, out, tiles, N, C);
   return cudaGetLastError();
@@ -213,9 +274,38 @@ extern "C" int cgc_l2relu_stats(const void* p, const void* n_nodes,
   auto o = static_cast<float*>(out);
   switch (dtype) {
     case cgc::kF32:
-      return launch_stats<float>(p, nn, part, o, B, N, C, st);
+      return launch_stats<float, false>(p, nullptr, nullptr, nullptr, 0, nn,
+                                        part, o, B, N, C, st);
     case cgc::kBF16:
-      return launch_stats<__nv_bfloat16>(p, nn, part, o, B, N, C, st);
+      return launch_stats<__nv_bfloat16, false>(p, nullptr, nullptr, nullptr,
+                                                0, nn, part, o, B, N, C, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// B9b: x3 [B*N, F3], kc3 [F3, C], b3 [C] in the compute type; partial and
+// out as for cgc_l2relu_stats.
+extern "C" int cgc_l2relu_stats_lin(const void* x3, const void* kc3,
+                                    const void* b3, const void* n_nodes,
+                                    void* partial, void* out, int B, int N,
+                                    int F3, int C, int tile_rows, int dtype,
+                                    int device, void* stream) {
+  if (tile_rows != kStatsRows || N % kStatsRows || F3 <= 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto nn = static_cast<const int*>(n_nodes);
+  auto part = static_cast<float*>(partial);
+  auto o = static_cast<float*>(out);
+  switch (dtype) {
+    case cgc::kF32:
+      return launch_stats<float, true>(nullptr, x3, kc3, b3, F3, nn, part, o,
+                                       B, N, C, st);
+    case cgc::kBF16:
+      return launch_stats<__nv_bfloat16, true>(nullptr, x3, kc3, b3, F3, nn,
+                                               part, o, B, N, C, st);
     default:
       return cudaErrorInvalidValue;
   }

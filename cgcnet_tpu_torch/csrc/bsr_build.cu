@@ -6,7 +6,8 @@
 // (nbr, w): A[i, nbr[i, k]] += w[i, k]. Padded block slots (blk_mask 0)
 // come out all zero, duplicate columns of one row sum, and the sum runs over
 // k in slot order from 0.0, as the TPU kernel's compare-accumulate does, so
-// f32 results are bit-equal.
+// f32 results are bit-equal. The slide path asks for int8 blocks (its
+// operator is binary): the f32 sums are truncated to int8 on the store.
 //
 // Bound on the H100: bytes. The kernel writes B*R*M*128*128 values (71 MB of
 // f32 at the canonical B=4, R=45, M=6) and reads the 128-row ELL slice once
@@ -91,6 +92,8 @@ extern "C" int cgc_bsr_build_blocks(const void* nbr, const void* w,
       return launch<float>(n, ww, bc, bm, vals, B, N, K, R, M, s);
     case cgc::kBF16:
       return launch<__nv_bfloat16>(n, ww, bc, bm, vals, B, N, K, R, M, s);
+    case cgc::kI8:
+      return launch<int8_t>(n, ww, bc, bm, vals, B, N, K, R, M, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -21,7 +21,9 @@
 // memory, and each of 256 threads keeps an 8 x (FC/16) register tile of f32
 // sums. FC is 32, 64 or 128 by F, so F = 18 does not pay for 128 columns.
 // Column chunks of one (b, r) are adjacent in the launch order, so the
-// blocks that re-read the same 128x128 block find it in L2.
+// blocks that re-read the same 128x128 block find it in L2. The block values
+// are in x's type or int8 (the slide path's binary operator, half the bytes
+// of bf16), converted to f32 as they are staged.
 
 #include "common.cuh"
 
@@ -30,9 +32,9 @@ namespace {
 constexpr int kBK = 32;
 constexpr int kThreads = 256;
 
-template <typename T, int CPT>
+template <typename V, typename T, int CPT>
 __global__ void __launch_bounds__(kThreads) bsr_matmul_kernel(
-    const T* __restrict__ vals, const int* __restrict__ blk_cols,
+    const V* __restrict__ vals, const int* __restrict__ blk_cols,
     const T* __restrict__ x, T* __restrict__ out, int R, int M, int NC,
     int F) {
   constexpr int FC = 16 * CPT;
@@ -55,7 +57,7 @@ __global__ void __launch_bounds__(kThreads) bsr_matmul_kernel(
   for (int m = 0; m < M; ++m) {
     const long long blk = br * M + m;
     const int x_row0 = blk_cols[blk] * cgc::kTile;
-    const T* a = vals + blk * cgc::kTile * cgc::kTile;
+    const V* a = vals + blk * cgc::kTile * cgc::kTile;
     for (int k0 = 0; k0 < cgc::kTile; k0 += kBK) {
       for (int e = t; e < cgc::kTile * kBK; e += kThreads) {
         const int row = e / kBK, kk = e % kBK;
@@ -98,45 +100,54 @@ __global__ void __launch_bounds__(kThreads) bsr_matmul_kernel(
   }
 }
 
-template <typename T, int CPT>
-cudaError_t launch_cpt(const T* vals, const int* blk_cols, const T* x, T* out,
+template <typename V, typename T, int CPT>
+cudaError_t launch_cpt(const V* vals, const int* blk_cols, const T* x, T* out,
                        int B, int R, int M, int NC, int F, cudaStream_t s) {
   constexpr int FC = 16 * CPT;
   const dim3 grid((F + FC - 1) / FC, static_cast<unsigned>(B) * R);
   if (grid.x > 0 && grid.y > 0) {
-    bsr_matmul_kernel<T, CPT>
+    bsr_matmul_kernel<V, T, CPT>
         <<<grid, kThreads, 0, s>>>(vals, blk_cols, x, out, R, M, NC, F);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename V, typename T>
 cudaError_t launch(const void* vals, const int* blk_cols, const void* x,
                    void* out, int B, int R, int M, int NC, int F,
                    cudaStream_t s) {
-  auto v = static_cast<const T*>(vals);
+  auto v = static_cast<const V*>(vals);
   auto xx = static_cast<const T*>(x);
   auto o = static_cast<T*>(out);
-  if (F <= 32) return launch_cpt<T, 2>(v, blk_cols, xx, o, B, R, M, NC, F, s);
-  if (F <= 64) return launch_cpt<T, 4>(v, blk_cols, xx, o, B, R, M, NC, F, s);
-  return launch_cpt<T, 8>(v, blk_cols, xx, o, B, R, M, NC, F, s);
+  if (F <= 32)
+    return launch_cpt<V, T, 2>(v, blk_cols, xx, o, B, R, M, NC, F, s);
+  if (F <= 64)
+    return launch_cpt<V, T, 4>(v, blk_cols, xx, o, B, R, M, NC, F, s);
+  return launch_cpt<V, T, 8>(v, blk_cols, xx, o, B, R, M, NC, F, s);
 }
 
 }  // namespace
 
+// vals_dtype: x's code, or kI8
 extern "C" int cgc_bsr_matmul(const void* vals, const void* blk_cols,
                               const void* x, void* out, int B, int R, int M,
-                              int NC, int F, int dtype, int device,
-                              void* stream) {
+                              int NC, int F, int vals_dtype, int dtype,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
   auto bc = static_cast<const int*>(blk_cols);
+  const bool i8 = vals_dtype == cgc::kI8;
+  if (!i8 && vals_dtype != dtype) return cudaErrorInvalidValue;
   switch (dtype) {
     case cgc::kF32:
-      return launch<float>(vals, bc, x, out, B, R, M, NC, F, s);
+      return i8 ? launch<int8_t, float>(vals, bc, x, out, B, R, M, NC, F, s)
+                : launch<float, float>(vals, bc, x, out, B, R, M, NC, F, s);
     case cgc::kBF16:
-      return launch<__nv_bfloat16>(vals, bc, x, out, B, R, M, NC, F, s);
+      return i8 ? launch<int8_t, __nv_bfloat16>(vals, bc, x, out, B, R, M, NC,
+                                                F, s)
+                : launch<__nv_bfloat16, __nv_bfloat16>(vals, bc, x, out, B, R,
+                                                       M, NC, F, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -94,11 +94,18 @@ class DenseJK(nn.Module):
         steps = list(torch.split(xs.reshape(b * n, total), c, dim=-1))
         fwd = _run_direction(self.lstm, steps, "_l0")
         bwd = _run_direction(self.lstm, steps[::-1], "_l0_reverse")[::-1]
-        # score of layer j: att([h_fwd_j | h_bwd_j])
+        # score of layer j: att([h_fwd_j | h_bwd_j]); the bias is added once
+        # to the [n, T] scores, as the JAX package's one attention product
+        # does, so its gradient — zero in theory (a shared score offset) —
+        # is one reduction over all layers, not three rounded apart in bf16
+        w = self.att.weight.t()
         alpha = torch.cat(
-            [self.att(torch.cat([fwd[j], bwd[j]], dim=-1)) for j in range(t)],
+            [torch.cat([fwd[j], bwd[j]], dim=-1) @ w.to(xs.dtype)
+             for j in range(t)],
             dim=-1,
         )
+        if self.att.bias is not None:
+            alpha = alpha + self.att.bias.to(xs.dtype)
         alpha = torch.softmax(alpha.float(), dim=-1).to(xs.dtype)
         out = torch.zeros_like(steps[0])
         for j in range(t):

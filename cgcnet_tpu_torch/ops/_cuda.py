@@ -38,22 +38,36 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # nbr, w, blk_cols, blk_mask, vals, B, N, K, R, M, dtype, device, stream
     "cgc_bsr_build_blocks": [_P] * 5 + [_I] * 7 + [_P],
-    # vals, blk_cols, x, out, B, R, M, NC, F, dtype, device, stream
-    "cgc_bsr_matmul": [_P] * 4 + [_I] * 7 + [_P],
+    # vals, blk_cols, x, out, B, R, M, NC, F, vals_dtype, dtype, device,
+    # stream
+    "cgc_bsr_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    # vals, blk_cols, x, halo (null: x's tail), acc (null), epilogue_sw
+    # (null), out, out_tail (null), B, R, M, ns_tiles, NX, NH, F, NA,
+    # vals_dtype, dtype, device, stream
+    "cgc_bsr_matmul_banded": [_P] * 8 + [_I] * 11 + [_P],
     # nbr, w, blk_cols, blk_mask, x, out, B, N, K, R, M, NC, F, dtype,
     # device, stream
     "cgc_bsr_gather_sum": [_P] * 6 + [_I] * 9 + [_P],
     # x12, p (B4) or h3a (B6), k12, k3f, const, n_nodes, rnorm (B4's
-    # scratch; null for B6), logits, s, B, N, F12, C, dtype, device, stream
-    "cgc_assign_head_pre": [_P] * 9 + [_I] * 6 + [_P],
-    "cgc_assign_head": [_P] * 9 + [_I] * 6 + [_P],
+    # scratch; null for B6), logits, s, B, N, F12, C, c_out, dtype, device,
+    # stream
+    "cgc_assign_head_pre": [_P] * 9 + [_I] * 7 + [_P],
+    "cgc_assign_head": [_P] * 9 + [_I] * 7 + [_P],
+    # x12, x3, kc3, b3, k12, k3f, const, n_nodes, rnorm, logits, s, B, N,
+    # F12, F3, C, dtype, device, stream
+    "cgc_assign_head_pre_lin": [_P] * 11 + [_I] * 7 + [_P],
     # p, n_nodes, partial, out, B, N, C, tile_rows, dtype, device, stream
     "cgc_l2relu_stats": [_P] * 4 + [_I] * 6 + [_P],
+    # x3, kc3, b3, n_nodes, partial, out, B, N, F3, C, tile_rows, dtype,
+    # device, stream
+    "cgc_l2relu_stats_lin": [_P] * 6 + [_I] * 7 + [_P],
     # p, dh, u, w, n_nodes, dp, B, N, C, dtype, device, stream
     "cgc_assign_tail_bwd": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# block values may also be int8 (the slide path's binary operator)
+VALS_CODES = {**DTYPE_CODES, torch.int8: 2}
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None

@@ -1,6 +1,7 @@
 """Fused assign head of the stage-1 pooling block: B4 (eval and train
-forward), B3 (BN batch statistics), B5 (the tail's backward) and B6 (the
-head without the normalize step).
+forward), B3 (BN batch statistics), B5 (the tail's backward), B6 (the
+head without the normalize step), and B9a / B9b (B4 and B3 with conv3's
+lin inside, the whole-slide capacity path).
 
 For each row of the raw conv3 lin output ``p`` (pre-normalize, pre-relu):
 
@@ -22,10 +23,20 @@ bn3's affine already folded into K3f and const, so
 
     S = softmax(x12 @ K12 + h3a @ K3f + const), rows >= n_nodes exactly 0.
 
+The whole-slide path adds: B4 with ``c_out`` (S written lane-padded, pad
+columns exact zeros) under ``AssignTailTrainPsum`` (the training tail with
+the statistics summed over the graph axis); and, for the capacity path,
+B9a and B9b, which take conv3's lin input x3 [B, N, F3] and its kernel and
+bias instead of p (p = round(x3 @ kc3) + b3 formed inside the kernels, never
+stored), under ``AssignTailTrainChunkedLin``, whose backward recomputes S
+and p chunk by chunk in two phases.
+
 Replaces ``cgcnet_tpu/ops/pallas/assign_head.py``: ``_fwd_call_pre`` (B4),
 ``_stats_call`` (B3), ``_bwd_call`` (B5), ``_fwd_call`` (B6),
-``assign_head_softmax_pre``'s, ``assign_tail_train``'s and
-``assign_head_softmax``'s custom VJPs. Each kernel has a plain PyTorch version
+``_fwd_call_pre_lin`` (B9a), ``_stats_call_lin`` (B9b),
+``assign_head_softmax_pre``'s, ``assign_tail_train``'s,
+``assign_tail_train_psum``'s, ``assign_tail_train_chunked_lin``'s and
+``assign_head_softmax``'s custom VJPs, ``pick_chunk`` and ``_chunk_plan``. Each kernel has a plain PyTorch version
 with the same arguments; the wrapper uses it only for tensors on the CPU and
 launches ``csrc/assign_head.cu`` or ``csrc/assign_tail.cu`` for CUDA tensors.
 """
@@ -35,6 +46,9 @@ from __future__ import annotations
 import torch
 
 from cgcnet_tpu_torch.ops import _cuda
+from cgcnet_tpu_torch.parallel.mega_graph import psum
+
+TILE = 128
 
 
 def _prefix_mask(n_nodes: torch.Tensor, n: int) -> torch.Tensor:
@@ -70,6 +84,7 @@ def assign_head_softmax_pre_plain(
     k3f: torch.Tensor,      # [C, C]      BN-folded lin rows for conv3
     const: torch.Tensor,    # [C] f32
     n_nodes: torch.Tensor,  # i32[B]
+    c_out=None,             # S width >= C (exact-zero pad columns)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     dt = p.dtype
     _, h = _rnorm_h(p.float())
@@ -81,6 +96,8 @@ def assign_head_softmax_pre_plain(
     )
     s = torch.softmax(logits, dim=-1)
     s = (s * _prefix_mask(n_nodes, p.shape[1])[..., None]).to(dt)
+    if c_out is not None and c_out != s.shape[-1]:
+        s = torch.nn.functional.pad(s, (0, c_out - s.shape[-1]))
     return s, s.transpose(1, 2)
 
 
@@ -101,11 +118,19 @@ def _check_head(name, x12, p, k12, k3f, const, n_nodes) -> None:
         raise ValueError(f"{name}: x12 {x12.dtype} != p/h3a {p.dtype}")
 
 
-def _launch_head(pre: bool, x12, p, k12, k3f, const, n_nodes):
+def _check_c_out(name: str, c: int, c_out) -> int:
+    co = c if c_out is None else int(c_out)
+    if co < c:
+        raise ValueError(f"{name}: c_out {co} < C {c}")
+    return co
+
+
+def _launch_head(pre: bool, x12, p, k12, k3f, const, n_nodes, c_out=None):
     """S of the B4 (``pre``: p normalized on load) or B6 kernel on CUDA
-    tensors."""
+    tensors, ``c_out`` columns wide."""
     entry = "cgc_assign_head_pre" if pre else "cgc_assign_head"
     b, n, c = p.shape
+    co = _check_c_out(entry, c, c_out)
     dt = p.dtype
     if dt not in _cuda.DTYPE_CODES:
         raise ValueError(f"{entry}: unsupported dtype {dt}")
@@ -117,10 +142,11 @@ def _launch_head(pre: bool, x12, p, k12, k3f, const, n_nodes):
     const = const.to(torch.float32).contiguous()
     n_nodes = n_nodes.to(torch.int32).contiguous()
     _cuda.require_cuda(entry, x12, p, k12, k3f, const, n_nodes)
-    s = torch.empty((b, n, c), dtype=dt, device=p.device)
-    # f32 logits: S itself holds them in f32 (normalized in place), bf16
-    # needs an f32 scratch so the softmax sees unrounded logits
-    logits = s if dt == torch.float32 else torch.empty(
+    s = torch.empty((b, n, co), dtype=dt, device=p.device)
+    # f32 logits: S itself holds them in f32 (normalized in place) unless
+    # it is padded; bf16 needs an f32 scratch so the softmax sees unrounded
+    # logits
+    logits = s if (dt == torch.float32 and co == c) else torch.empty(
         (b, n, c), dtype=torch.float32, device=p.device
     )
     # B4's per-row 1/||p|| scratch; B6 reads none and is given a null pointer
@@ -131,7 +157,7 @@ def _launch_head(pre: bool, x12, p, k12, k3f, const, n_nodes):
         x12.data_ptr(), p.data_ptr(), k12.data_ptr(), k3f.data_ptr(),
         const.data_ptr(), n_nodes.data_ptr(),
         rnorm.data_ptr() if pre else None,
-        logits.data_ptr(), s.data_ptr(), b, n, x12.shape[-1], c,
+        logits.data_ptr(), s.data_ptr(), b, n, x12.shape[-1], c, co,
         _cuda.DTYPE_CODES[dt], p.device.index, _cuda.stream_of(p),
     )
     return s
@@ -144,12 +170,15 @@ def assign_head_softmax_pre(
     k3f: torch.Tensor,
     const: torch.Tensor,
     n_nodes: torch.Tensor,
+    c_out=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B4. Same contract as :func:`assign_head_softmax_pre_plain`."""
     _check_head("assign_head_softmax_pre", x12, p, k12, k3f, const, n_nodes)
+    _check_c_out("assign_head_softmax_pre", p.shape[-1], c_out)
     if p.device.type == "cpu":
-        return assign_head_softmax_pre_plain(x12, p, k12, k3f, const, n_nodes)
-    s = _launch_head(True, x12, p, k12, k3f, const, n_nodes)
+        return assign_head_softmax_pre_plain(x12, p, k12, k3f, const, n_nodes,
+                                             c_out)
+    s = _launch_head(True, x12, p, k12, k3f, const, n_nodes, c_out)
     assign_head_softmax_pre.launches += 1
     return s, s.transpose(1, 2)
 
@@ -451,3 +480,322 @@ class AssignTailTrain(torch.autograd.Function):
         dp = assign_tail_bwd(p, dh, dssum, dssq, n_nodes)
         return (dx12, dp, dk12, dk3, dlin_bias, dbn_scale, dbn_bias,
                 None, None, None)
+
+
+def _alg_grads(saved, n, eps, dk3f, dconst, dk3f_g, dconst_g):
+    """Backward of :func:`tail_algebra` with the routing of the JAX
+    package's ``_atfp_bwd``: the statistics' cotangents (which feed the
+    row-sharded dp) come from the GLOBAL (psum'd) dk3f/dconst, the
+    parameters' cotangents from this shard's own contributions (the
+    parameters are replicated, and their gradients are summed across
+    shards by whoever reduces them). Returns (dssum, dssq, dk3, dlin_bias,
+    dbn_scale, dbn_bias)."""
+    leaves = [t.detach().requires_grad_(True) for t in saved]
+    with torch.enable_grad():
+        k3f_, const_, _, _ = tail_algebra(*leaves, n, eps)
+        dssum, dssq = torch.autograd.grad(
+            (k3f_, const_), leaves[:2], (dk3f_g, dconst_g), retain_graph=True
+        )
+        dk3, dlin_bias, dbn_scale, dbn_bias = torch.autograd.grad(
+            (k3f_, const_), leaves[2:], (dk3f, dconst)
+        )
+    return dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias
+
+
+class AssignTailTrainPsum(torch.autograd.Function):
+    """``AssignTailTrain`` with the BN statistics summed over the graph axis
+    between B3 and B4 (the slide path's SyncBatchNorm) and S emitted
+    ``c_out`` columns wide (exact-zero pad columns, so B8 reads a
+    lane-aligned S). ``n`` is the global real-row count. Returns (S, batch
+    mean, batch var). The backward (``_atfp_bwd``) runs the N-sized chains
+    at the padded width against zero-padded kernels and trims the [C]-sized
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x12, p, k12, k3, lin_bias, bn_scale, bn_bias, n_nodes,
+                n, eps, c_out):
+        ssum, ssq = l2relu_stats(p, n_nodes)
+        ssum, ssq = psum(ssum), psum(ssq)
+        k3f, const, mean, var = tail_algebra(
+            ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps
+        )
+        s, _ = assign_head_softmax_pre(x12, p, k12, k3f, const, n_nodes,
+                                       c_out)
+        ctx.save_for_backward(x12, p, k12, k3f, s, n_nodes, ssum, ssq, k3,
+                              lin_bias, bn_scale, bn_bias, n)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return s, mean, var
+
+    @staticmethod
+    def backward(ctx, ds, _dmean, _dvar):
+        (x12, p, k12, k3f, s, n_nodes, ssum, ssq, k3, lin_bias, bn_scale,
+         bn_bias, n) = ctx.saved_tensors
+        c = k3f.shape[0]
+        pad = s.shape[-1] - c
+        dl, dl32 = _softmax_vjp(s, ds)
+        pad_c = lambda k: torch.nn.functional.pad(k, (0, pad)) if pad else k
+        dx12 = dl @ pad_c(k12).to(dl.dtype).t()
+        dk12 = torch.einsum(
+            "bnf,bnc->fc", x12.float(), dl.float()
+        )[:, :c].to(k12.dtype)
+        dconst = torch.sum(dl32, dim=(0, 1))[:c]
+        dh = dl @ pad_c(k3f).to(dl.dtype).t()
+        _, h32 = _rnorm_h(p.float())
+        h = (h32 * _prefix_mask(n_nodes, p.shape[1])[..., None]).to(p.dtype)
+        dk3f = torch.einsum("bnc,bnd->cd", h.float(), dl.float())[:, :c]
+        dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
+            (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
+            dk3f, dconst, psum(dk3f), psum(dconst),
+        )
+        dp = assign_tail_bwd(p, dh, dssum, dssq, n_nodes)
+        return (dx12, dp, dk12, dk3, dlin_bias, dbn_scale, dbn_bias,
+                None, None, None, None)
+
+
+def assign_tail_train_psum(x12, p, k12, k3, lin_bias, bn_scale, bn_bias,
+                           n_nodes, n, eps=1e-5, c_out=None):
+    """(S [B, N, c_out or C], mean, var) — :class:`AssignTailTrainPsum`."""
+    return AssignTailTrainPsum.apply(x12, p, k12, k3, lin_bias, bn_scale,
+                                     bn_bias, n_nodes, n, eps, c_out)
+
+
+# ---------------------------------------------------------------------------
+# the capacity path: B9a, B9b and the chunked-recompute tail
+# ---------------------------------------------------------------------------
+
+def pick_chunk(nrows: int, target: int) -> int:
+    """A legal chunk for ``target`` rows: a multiple of 128 capped at
+    ``nrows``; 0 when chunking cannot apply. A non-dividing chunk leaves
+    one remainder chunk."""
+    if nrows % TILE or target < TILE:
+        return 0
+    return min(nrows, target // TILE * TILE)
+
+
+def chunk_plan(nrows: int, chunk_rows: int) -> tuple[int, int, int]:
+    """(chunk, full chunks, remainder rows) of ``nrows`` rows."""
+    ch = min(chunk_rows, nrows)
+    if ch % TILE or nrows % TILE or ch <= 0:
+        raise ValueError(f"chunks of {ch} over {nrows} rows must tile by "
+                         f"{TILE}")
+    nfull = nrows // ch
+    return ch, nfull, nrows - nfull * ch
+
+
+def lin_p(x3: torch.Tensor, kc3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """conv3's lin output as the lin-fused kernels form it: the product in
+    f32, rounded to x3's dtype, plus the bias in that dtype."""
+    dt = x3.dtype
+    return (x3.float() @ kc3.to(dt).float()).to(dt) + b3.to(dt)
+
+
+def _check_lin(name, x3, kc3, b3, n_nodes) -> None:
+    if x3.dim() != 3 or kc3.shape[0] != x3.shape[-1] \
+            or b3.shape != (kc3.shape[1],) or n_nodes.shape != (x3.shape[0],):
+        raise ValueError(
+            f"{name}: x3 {tuple(x3.shape)} must be [B, N, F3], kc3 "
+            f"{tuple(kc3.shape)} [F3, C], b3 {tuple(b3.shape)} [C], n_nodes "
+            f"{tuple(n_nodes.shape)} [B]"
+        )
+
+
+def assign_head_softmax_pre_lin_plain(
+    x12: torch.Tensor,      # [B, N, F12]
+    x3: torch.Tensor,       # [B, N, F3] conv3's lin input
+    kc3: torch.Tensor,      # [F3, C] conv3's lin kernel
+    b3: torch.Tensor,       # [C] its bias
+    k12: torch.Tensor,
+    k3f: torch.Tensor,
+    const: torch.Tensor,
+    n_nodes: torch.Tensor,
+) -> torch.Tensor:
+    """S [B, N, C] of B4 with p = :func:`lin_p` (x3, kc3, b3)."""
+    return assign_head_softmax_pre_plain(
+        x12, lin_p(x3, kc3, b3), k12, k3f, const, n_nodes
+    )[0]
+
+
+def assign_head_softmax_pre_lin(x12, x3, kc3, b3, k12, k3f, const, n_nodes):
+    """B9a. Same contract as :func:`assign_head_softmax_pre_lin_plain`;
+    launches ``csrc/assign_head.cu`` (B4's kernels with the LIN switch) for
+    CUDA tensors."""
+    _check_lin("assign_head_softmax_pre_lin", x3, kc3, b3, n_nodes)
+    b, n, _ = x3.shape
+    c = kc3.shape[1]
+    f12 = x12.shape[-1]
+    if x12.shape[:2] != (b, n) or k12.shape != (f12, c) \
+            or k3f.shape != (c, c) or const.shape != (c,) \
+            or x12.dtype != x3.dtype:
+        raise ValueError(
+            f"assign_head_softmax_pre_lin: x12 {tuple(x12.shape)} "
+            f"{x12.dtype}, k12 {tuple(k12.shape)}, k3f {tuple(k3f.shape)}, "
+            f"const {tuple(const.shape)} disagree with x3 {tuple(x3.shape)} "
+            f"{x3.dtype} and C={c}"
+        )
+    if x3.device.type == "cpu":
+        return assign_head_softmax_pre_lin_plain(x12, x3, kc3, b3, k12, k3f,
+                                                 const, n_nodes)
+    dt = x3.dtype
+    if dt not in _cuda.DTYPE_CODES:
+        raise ValueError(f"assign_head_softmax_pre_lin: unsupported {dt}")
+    if n % TILE:
+        raise ValueError(f"assign_head_softmax_pre_lin: N={n} must tile by "
+                         f"{TILE}")
+    x12, x3 = x12.contiguous(), x3.contiguous()
+    kc3, b3 = kc3.to(dt).contiguous(), b3.to(dt).contiguous()
+    k12, k3f = k12.to(dt).contiguous(), k3f.to(dt).contiguous()
+    const = const.to(torch.float32).contiguous()
+    n_nodes = n_nodes.to(torch.int32).contiguous()
+    _cuda.require_cuda("assign_head_softmax_pre_lin", x12, x3, kc3, b3, k12,
+                       k3f, const, n_nodes)
+    s = torch.empty((b, n, c), dtype=dt, device=x3.device)
+    logits = s if dt == torch.float32 else torch.empty(
+        (b, n, c), dtype=torch.float32, device=x3.device
+    )
+    rnorm = torch.empty((b * n,), dtype=torch.float32, device=x3.device)
+    _cuda.launch(
+        "cgc_assign_head_pre_lin",
+        x12.data_ptr(), x3.data_ptr(), kc3.data_ptr(), b3.data_ptr(),
+        k12.data_ptr(), k3f.data_ptr(), const.data_ptr(), n_nodes.data_ptr(),
+        rnorm.data_ptr(), logits.data_ptr(), s.data_ptr(), b, n, f12,
+        x3.shape[-1], c, _cuda.DTYPE_CODES[dt], x3.device.index,
+        _cuda.stream_of(x3),
+    )
+    assign_head_softmax_pre_lin.launches += 1
+    return s
+
+
+assign_head_softmax_pre_lin.launches = 0
+
+
+def l2relu_stats_lin_plain(x3, kc3, b3, n_nodes):
+    """(sum[C], sumsq[C]) of B3 with p = :func:`lin_p` (x3, kc3, b3)."""
+    return l2relu_stats_plain(lin_p(x3, kc3, b3), n_nodes)
+
+
+def l2relu_stats_lin(x3, kc3, b3, n_nodes):
+    """B9b. Same contract as :func:`l2relu_stats_lin_plain`; launches
+    ``csrc/assign_tail.cu`` (B3's kernel with the LIN switch) for CUDA
+    tensors."""
+    _check_lin("l2relu_stats_lin", x3, kc3, b3, n_nodes)
+    if x3.device.type == "cpu":
+        return l2relu_stats_lin_plain(x3, kc3, b3, n_nodes)
+    b, n, f3 = x3.shape
+    c = kc3.shape[1]
+    dt = x3.dtype
+    if dt not in _cuda.DTYPE_CODES:
+        raise ValueError(f"l2relu_stats_lin: unsupported dtype {dt}")
+    if n % STATS_ROWS:
+        raise ValueError(f"l2relu_stats_lin: N={n} must tile by {STATS_ROWS}")
+    x3 = x3.contiguous()
+    kc3, b3 = kc3.to(dt).contiguous(), b3.to(dt).contiguous()
+    n_nodes = n_nodes.to(torch.int32).contiguous()
+    _cuda.require_cuda("l2relu_stats_lin", x3, kc3, b3, n_nodes)
+    tiles = b * n // STATS_ROWS
+    partial = torch.empty((tiles, 2, c), dtype=torch.float32, device=x3.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=x3.device)
+    _cuda.launch(
+        "cgc_l2relu_stats_lin",
+        x3.data_ptr(), kc3.data_ptr(), b3.data_ptr(), n_nodes.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), b, n, f3, c, STATS_ROWS,
+        _cuda.DTYPE_CODES[dt], x3.device.index, _cuda.stream_of(x3),
+    )
+    l2relu_stats_lin.launches += 1
+    return out[0], out[1]
+
+
+l2relu_stats_lin.launches = 0
+
+
+class AssignTailTrainChunkedLin(torch.autograd.Function):
+    """The capacity path's training tail: ``AssignTailTrainPsum`` with
+    conv3's lin inside (B9b for the statistics, B9a for S), so no [N, C]
+    tensor of the conv3 stream exists; S is not saved either. The backward
+    (``_atcl_bwd``) sweeps the rows twice in chunks of ``chunk_rows``,
+    recomputing S (B9a) and p per chunk: phase A sums the [C]-sized
+    reductions (dk12, dk3f, dconst), phase B — with the statistics'
+    cotangents known — writes dx12 and dx3 and sums dkc3, db3 through one B5
+    launch per chunk. Returns (S, batch mean, batch var)."""
+
+    @staticmethod
+    def forward(ctx, x12, x3, kc3, b3, k12, k3, lin_bias, bn_scale, bn_bias,
+                n_nodes, n, eps, chunk_rows):
+        ssum, ssq = l2relu_stats_lin(x3, kc3, b3, n_nodes)
+        ssum, ssq = psum(ssum), psum(ssq)
+        k3f, const, mean, var = tail_algebra(
+            ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps
+        )
+        s = assign_head_softmax_pre_lin(x12, x3, kc3, b3, k12, k3f, const,
+                                        n_nodes)
+        ctx.save_for_backward(x12, x3, kc3, b3, k12, k3f, const, n_nodes,
+                              ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n)
+        ctx.eps, ctx.chunk_rows = eps, chunk_rows
+        ctx.mark_non_differentiable(mean, var)
+        return s, mean, var
+
+    @staticmethod
+    def backward(ctx, ds, _dmean, _dvar):
+        (x12, x3, kc3, b3, k12, k3f, const, n_nodes, ssum, ssq, k3, lin_bias,
+         bn_scale, bn_bias, n) = ctx.saved_tensors
+        _, nrows, f3 = x3.shape
+        c = kc3.shape[1]
+        dt = x3.dtype
+        ch, nfull, rem = chunk_plan(nrows, ctx.chunk_rows)
+        spans = [(i * ch, ch) for i in range(nfull)]
+        if rem:
+            spans.append((nfull * ch, rem))
+
+        def dl_of(lo, size):
+            """Chunk-local recompute: S by B9a (the forward's kernel, so the
+            same bits), p by the plain lin, the masked-softmax fold."""
+            x3c = x3[:, lo:lo + size]
+            xc = x12[:, lo:lo + size]
+            nn_c = torch.clamp(n_nodes.long() - lo, 0, size).to(n_nodes.dtype)
+            sc = assign_head_softmax_pre_lin(xc, x3c, kc3, b3, k12, k3f,
+                                             const, nn_c)
+            dl, dl32 = _softmax_vjp(sc, ds[:, lo:lo + size])
+            return xc, x3c, lin_p(x3c, kc3, b3), nn_c, dl32, dl
+
+        # ---- phase A: the [C]-sized reductions ----
+        dk12 = x3.new_zeros((x12.shape[-1], c), dtype=torch.float32)
+        dk3f = x3.new_zeros((c, c), dtype=torch.float32)
+        dconst = x3.new_zeros((c,), dtype=torch.float32)
+        for lo, size in spans:
+            xc, _, pc, nn_c, dl32, dl = dl_of(lo, size)
+            dk12 += torch.einsum("bnf,bnc->fc", xc.float(), dl.float())
+            _, h32 = _rnorm_h(pc.float())
+            hc = (h32 * _prefix_mask(nn_c, size)[..., None]).to(dt)
+            dk3f += torch.einsum("bnc,bnd->cd", hc.float(), dl.float())
+            dconst += torch.sum(dl32, dim=(0, 1))
+        dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
+            (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
+            dk3f, dconst, psum(dk3f), psum(dconst),
+        )
+
+        # ---- phase B: the row gradients; dp exists per chunk only ----
+        dx12 = torch.zeros_like(x12)
+        dx3 = torch.zeros_like(x3)
+        dkc3 = x3.new_zeros((f3, c), dtype=torch.float32)
+        db3 = x3.new_zeros((c,), dtype=torch.float32)
+        for lo, size in spans:
+            xc, x3c, pc, nn_c, dl32, dl = dl_of(lo, size)
+            dh = dl @ k3f.to(dl.dtype).t()
+            dpc = assign_tail_bwd(pc, dh, dssum, dssq, nn_c)
+            dx12[:, lo:lo + size] = (dl @ k12.to(dl.dtype).t()).to(dx12.dtype)
+            dx3[:, lo:lo + size] = (dpc @ kc3.to(dpc.dtype).t()).to(dx3.dtype)
+            dkc3 += torch.einsum("bnf,bnc->fc", x3c.float(), dpc.float())
+            db3 += torch.sum(dpc.float(), dim=(0, 1))
+        return (dx12, dx3, dkc3.to(kc3.dtype), db3.to(b3.dtype),
+                dk12.to(k12.dtype), dk3, dlin_bias, dbn_scale, dbn_bias,
+                None, None, None, None)
+
+
+def assign_tail_train_chunked_lin(x12, x3, kc3, b3, k12, k3, lin_bias,
+                                  bn_scale, bn_bias, n_nodes, n, eps=1e-5,
+                                  chunk_rows=65536):
+    """(S [B, N, C], mean, var) — :class:`AssignTailTrainChunkedLin`."""
+    return AssignTailTrainChunkedLin.apply(
+        x12, x3, kc3, b3, k12, k3, lin_bias, bn_scale, bn_bias, n_nodes, n,
+        eps, chunk_rows,
+    )

@@ -15,6 +15,11 @@ Port of ``cgcnet_tpu/ops/ell.py``:
 - ``bsr_matmul_precomp``: A @ x with A's block values, weights folded in,
   built once per batch by B1; its backward B_off^T (scale*g) + self_w*g
   over the binary transpose blocks (B2 both ways);
+- ``bsr_local_matmul``: the whole-slide path's per-shard A_loc @ [h ++
+  halo] over int8 blocks — B8 for the wide (F >= BAND_MIN_F) legs at
+  2-byte activations when the window tables exist, B2 otherwise — and its
+  backward over the transpose blocks, the halo rows of a hybrid transpose
+  as an ELL gather;
 - ``renorm_ell``, ``renorm_dense`` (reference ``_re_norm_adj``,
   model/network.py:183-191) and ``ell_rowsum``.
 """
@@ -23,7 +28,12 @@ from __future__ import annotations
 
 import torch
 
-from cgcnet_tpu_torch.ops.bsr import bsr_gather_sum, bsr_matmul
+from cgcnet_tpu_torch.ops.bsr import (
+    BAND_MIN_F,
+    bsr_gather_sum,
+    bsr_matmul,
+    bsr_matmul_banded,
+)
 
 EPS = 1e-15  # reference model/network.py:8
 
@@ -154,6 +164,77 @@ def bsr_matmul_precomp(
     """A @ x with A's backward through the transpose blocks (B2 both ways)."""
     return BsrMatmulPrecomp.apply(vals, blk_cols, vals_t, blk_cols_t, scale,
                                   self_w, x)
+
+
+def _banded_on(win, x: torch.Tensor) -> bool:
+    """B8 serves a leg when its window table exists, the leg is at least
+    BAND_MIN_F wide and activations take at most 2 bytes (ops/ell.py:259 of
+    the JAX package: the TPU window is sized for bf16)."""
+    return bool(win.shape[-1]) and x.shape[-1] >= BAND_MIN_F \
+        and x.element_size() <= 2
+
+
+class BsrLocalMatmul(torch.autograd.Function):
+    """out [Ns, F] = A_loc @ [h ++ halo] of one shard; the backward runs the
+    transpose blocks over the cotangent and splits the result into the
+    local rows and the halo rows (the caller's halo exchange routes the
+    latter back to their shards). B8's window contract is the tables'
+    (``bsr.check_band_windows``, once per slide), not checked per launch."""
+
+    @staticmethod
+    def forward(ctx, vals, blk_cols, win, vals_t, blk_cols_t, win_t, h, halo,
+                win_halo, nbr_t_h, mask_t_h):
+        ctx.save_for_backward(vals_t, blk_cols_t, win_t, nbr_t_h, mask_t_h)
+        ctx.ns = h.shape[0]
+        if _banded_on(win, h):
+            hw = (win_halo if win_halo is not None and win_halo.shape[-1]
+                  else None)
+            return bsr_matmul_banded(
+                vals, blk_cols, win, h[None], ns_rows=h.shape[0],
+                halo=halo[None], halo_win=hw, check_windows=False,
+            )[0]
+        return bsr_matmul(vals, blk_cols, torch.cat([h, halo], dim=0)[None])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        vals_t, blk_cols_t, win_t, nbr_t_h, mask_t_h = ctx.saved_tensors
+        ns = ctx.ns
+        g = g.contiguous()
+        if _banded_on(win_t, g):
+            # the transpose's x is the forward's row space: no halo tiles
+            d_xx = bsr_matmul_banded(
+                vals_t, blk_cols_t, win_t, g[None], ns_rows=ns,
+                check_windows=False,
+            )[0]
+        else:
+            d_xx = bsr_matmul(vals_t, blk_cols_t, g[None])[0]
+        if nbr_t_h is not None and nbr_t_h.shape[0]:
+            # hybrid transpose: the halo rows' in-edges as an ELL gather
+            d_halo = ell_gather_sum(
+                nbr_t_h[None], mask_t_h.to(g.dtype)[None], g[None]
+            )[0]
+        else:
+            d_halo = d_xx[ns:]
+        return (None,) * 6 + (d_xx[:ns], d_halo) + (None,) * 3
+
+
+def bsr_local_matmul(
+    vals: torch.Tensor,        # [1, R, M, T, T] blocks of A_loc (int8)
+    blk_cols: torch.Tensor,    # i32[1, R, M]
+    win: torch.Tensor,         # i32[1, S] window bases, or [1, 0]
+    vals_t: torch.Tensor,      # [1, RC, MT, T, T] blocks of A_loc^T
+    blk_cols_t: torch.Tensor,  # i32[1, RC, MT]
+    win_t: torch.Tensor,       # i32[1, S_t] or [1, 0]
+    h: torch.Tensor,           # [Ns, F] local rows
+    halo: torch.Tensor,        # [NC - Ns, F] halo rows, zero-padded
+    win_halo=None,             # halo sub-window bases or None / [1, 0]
+    nbr_t_h=None,              # i32[H, KT] in-edge lists of the halo rows
+                               #   (hybrid transpose)
+    mask_t_h=None,             # f32[H, KT]
+) -> torch.Tensor:
+    """[Ns, F] = A_loc @ [h ++ halo] (:class:`BsrLocalMatmul`)."""
+    return BsrLocalMatmul.apply(vals, blk_cols, win, vals_t, blk_cols_t,
+                                win_t, h, halo, win_halo, nbr_t_h, mask_t_h)
 
 
 def renorm_ell(

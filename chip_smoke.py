@@ -38,7 +38,31 @@ Phases, each fatal on failure (exit code != 0):
    ``fused_assign_norm=never`` (B6) against the default (B4) on the same
    weights and batch; one forward and one train step each of GAT and
    SAGE+elu (B6 once each); the batch with its block metadata stripped,
-   forward and backward with no kernel launched.
+   forward and backward with no kernel launched;
+8. slide serving: ``cli.slide.main`` on a synthetic 100k-nuclei slide,
+   ``--shards 1``, bf16, the phase-4 patch checkpoint, ``--slides 3``, with
+   the counters read (B1 = 2 per slide build; B2 = 3, B8 = 1, B4 = 1 per
+   forward); the forward's CUDA-event time; its logits against the plain
+   versions on the card;
+9. slide training: 12 steps of ``make_slide_train_step`` at 100k, bf16
+   (B2 = 5, B3 = 1, B4 = 1 with S lane-padded to 1152, B8 = 2 — one with
+   the row accumulator and split outputs —, B5 = 1 per step), finite
+   loss, parameters and running statistics changed, one step's gradients
+   against the plain versions on the card; one ``cli.slide
+   --train-epochs 2 --out`` round trip, the written file served again;
+10. capacity path: 6 steps with ``model.assign_tail_chunk=65536
+   mesh.remat_stage1=true`` (chunks of 65536 and 34816 rows; B9b = 1, B9a
+   = 5, B5 = 2, B8 = 2, B2 = 8 per step), gradients against the plain
+   versions on the card; then an f32 forward and step of an 8192-nuclei
+   slide on the card against the CPU (block tables built by hand for both);
+   then B8 (the A @ S legs, the transpose legs with and without the
+   accumulator, halo windows from shard 0 of a 4-shard stripe-sorted
+   partition — on no path of this run, 0 launches —, the ``epilogue_sw``
+   option), B9a, B9b, B3, B4 (serving, and
+   training's lane-padded ``c_out``), B5 (the training call and each
+   capacity chunk) and the int8 B1/B2 legs against their plain versions on
+   the card, in f32 and bf16, on inputs captured from phases 8-10, timed as
+   in phase 3.
 
 The second-to-last lines are one JSON object of per-kernel numbers and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -99,13 +123,60 @@ NUDGE_SEEDS = (3, 4, 5)
 DATA_NODES = (9000, 11404)
 CANONICAL = {"B": 4, "N": 5760, "C": 1140}
 TRAIN_EPOCHS = 2        # of 6 batches each (24 training patches, drop_last)
-KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7")
+KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9a", "B9b")
 # launches per train step and per serving batch, SAGE (canonical) and GIN;
 # a kernel not named launches 0 times
 TRAIN_PER_STEP = {"B1": 2, "B2": 7, "B3": 1, "B4": 1, "B5": 1}
 SERVE_PER_BATCH = {"B1": 1, "B2": 4, "B4": 1}
 GIN_TRAIN_PER_STEP = {"B1": 2, "B2": 7, "B6": 1}
 GIN_SERVE_PER_BATCH = {"B1": 1, "B2": 4, "B6": 1}
+# the whole-slide path: a synthetic slide of SLIDE_NUCLEI nuclei (100352
+# rows, 784 row tiles), one shard, bf16 activations, the canonical widths
+SLIDE_NUCLEI = 100_000
+SLIDE_CAP = -(-SLIDE_NUCLEI // 512) * 512   # 100352 rows, 784 row tiles
+SLIDE_DTYPE = ["model.compute_dtype=bfloat16"]
+CAP_CHUNK = 65536       # model.assign_tail_chunk of the capacity path
+SLIDE_CAPACITY = [f"model.assign_tail_chunk={CAP_CHUNK}",
+                  "mesh.remat_stage1=true"]
+SLIDE_STREAM = 3        # slides of the cli.slide --slides stream
+SLIDE_TRAIN_STEPS = 12
+SLIDE_CAP_STEPS = 6
+SMALL_SLIDE_NUCLEI = 8192   # the f32 card-vs-CPU slide
+# B8's halo-window variant: shard 0 of the slide stripe-sorted for 4 shards
+# (a partition whose halo outgrows the resident tail), at the A@S width
+HALO_SHARDS, HALO_NUCLEI, HALO_F = 4, 100_000, 1152
+SLIDE_BUILD = {"B1": 2}                              # per slide build
+SLIDE_FORWARD = {"B2": 3, "B8": 1, "B4": 1}          # per forward
+SLIDE_TRAIN_PER_STEP = {"B2": 5, "B3": 1, "B4": 1, "B5": 1, "B8": 2}
+SLIDE_CAP_PER_STEP = {"B2": 8, "B5": 2, "B8": 2, "B9a": 5, "B9b": 1}
+# the slide holds run in bf16 (the slide path's activations): kernels
+# against their plain versions on the same card, at the f32 rules (logits
+# LOGIT_ATOL/RTOL, gradients GRAD_REL/GRAD_FLOOR) widened by BF16_WIDEN x
+# the distance between the plain bf16 computation and the plain f32 one on
+# the same card — what bf16 rounding alone moves: the kernels and the plain
+# versions round at other points, two such bf16 computations part by up to
+# the sum of their distances from the f32 one, and either may lie up to
+# about twice as far from it as the other (on an H100 80GB HBM3 the JK
+# attention bias, whose gradient is zero in theory and rounding noise in
+# bf16, parted by 2.34x that distance)
+BF16_WIDEN = 4.0
+# a gradient that is zero in theory (the JK attention biases: a shared
+# score offset, ``zero_in_theory``) comes out as rounding noise; in bf16
+# its floor is half a bf16 step of the model's largest gradient (on an
+# H100 80GB HBM3 jk2.att.bias parted by 1e-4 of the model's largest
+# gradient on the capacity path, where its plain bf16 and f32 values
+# happened to agree to 2.4e-7). Every other tensor keeps GRAD_FLOOR
+BF16_FLOOR = 2.0 ** -9
+# B8, B9a, B9b as B2, B4 and B3: f32 B8 1e-4 (sums over 128*M block
+# columns in another order), B9a and B9b 1e-5 (the F3-term dot forming p
+# is rounded alike, then B4's and B3's sums); bf16 2^-6
+TOL.update({
+    ("B8", "float32"): 1e-4, ("B8", "bfloat16"): 2.0 ** -6,
+    ("B9a", "float32"): 1e-5, ("B9a", "bfloat16"): 2.0 ** -6,
+    ("B9b", "float32"): 1e-5, ("B9b", "bfloat16"): 2.0 ** -6,
+})
+PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest")
+SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity")
 
 
 def log(msg: str) -> None:
@@ -139,7 +210,9 @@ def wrappers() -> dict:
     return {"B1": bsr.bsr_build_blocks, "B2": bsr.bsr_matmul,
             "B3": ah.l2relu_stats, "B4": ah.assign_head_softmax_pre,
             "B5": ah.assign_tail_bwd, "B6": ah.assign_head_softmax,
-            "B7": bsr.bsr_gather_sum}
+            "B7": bsr.bsr_gather_sum, "B8": bsr.bsr_matmul_banded,
+            "B9a": ah.assign_head_softmax_pre_lin,
+            "B9b": ah.l2relu_stats_lin}
 
 
 def zero_counts() -> None:
@@ -175,15 +248,22 @@ def sites_replaced(replacement):
     from cgcnet_tpu_torch.nn import model as model_mod
     from cgcnet_tpu_torch.ops import assign_head as ah
     from cgcnet_tpu_torch.ops import bsr, ell
+    from cgcnet_tpu_torch.parallel import mega_model
 
     sites = [
         (model_mod, "bsr_build_blocks", "B1", bsr.bsr_build_blocks_plain),
+        (mega_model, "bsr_build_blocks", "B1", bsr.bsr_build_blocks_plain),
         (ell, "bsr_matmul", "B2", bsr.bsr_matmul_plain),
         (ah, "l2relu_stats", "B3", ah.l2relu_stats_plain),
         (ah, "assign_head_softmax_pre", "B4", ah.assign_head_softmax_pre_plain),
         (ah, "assign_tail_bwd", "B5", ah.assign_tail_bwd_plain),
         (ah, "assign_head_softmax", "B6", ah.assign_head_softmax_plain),
         (ell, "bsr_gather_sum", "B7", bsr.bsr_gather_sum_plain),
+        (ell, "bsr_matmul_banded", "B8", bsr.bsr_matmul_banded_plain),
+        (mega_model, "bsr_matmul_banded", "B8", bsr.bsr_matmul_banded_plain),
+        (ah, "assign_head_softmax_pre_lin", "B9a",
+         ah.assign_head_softmax_pre_lin_plain),
+        (ah, "l2relu_stats_lin", "B9b", ah.l2relu_stats_lin_plain),
     ]
     originals = [getattr(mod, name) for mod, name, _, _ in sites]
     for (mod, name, key, plain), orig in zip(sites, originals):
@@ -205,6 +285,8 @@ def capture_inputs(model, graph) -> dict:
 
     def shim_for(key, wrapper, plain):
         def shim(*args):
+            if key in ("B8", "B9a", "B9b"):  # not on the patch path
+                return wrapper(*args)
             seen[key].append(
                 [a.detach().clone() if isinstance(a, torch.Tensor) else a
                  for a in args]
@@ -221,6 +303,53 @@ def capture_inputs(model, graph) -> dict:
     return seen
 
 
+def record_kernel(results, name, key, dt, out, ref, kernel_fn, plain_fn,
+                  bytes_, ops, library=None, source="", replaces="",
+                  ops_dt=None, paths=None, reps=15, plain_reps=15) -> None:
+    """Hold a kernel's output (a tensor or a tuple) against its plain
+    version's at TOL, time kernel, plain version and library call (CUDA
+    events), and append the kernel-line entry to ``results``; ``paths``
+    names the main paths whose launches it counts (default the patch
+    paths; () for a variant that no path of this run takes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    err = max((o.float() - r.float()).abs().max().item()
+              for o, r in zip(outs, refs))
+    scale = max(r.float().abs().max().item() for r in refs)
+    tol = TOL[(key, dt)] * scale
+    ok = err <= tol
+    ms = time_ms(kernel_fn, reps=reps)
+    plain_ms = time_ms(plain_fn, reps=plain_reps, warmup=min(2, plain_reps))
+    lib_ms = None
+    if library is not None:
+        # the yardstick only: a library without this call is recorded as
+        # null, it does not fail the run
+        try:
+            lib_ms = time_ms(library(), reps=reps)
+        except (RuntimeError, NotImplementedError) as e:
+            log(f"  library call unavailable for {name}: {e}")
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[ops_dt or dt] * 1e3
+    entry = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": None, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, "key": key,
+        "paths": PATCH_PATHS if paths is None else paths,
+    }
+    log(f"  {name}: max_abs_err {err:.3e} (max|ref| {scale:.3e}, tol "
+        f"{tol:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    if not ok:
+        raise SystemExit(f"kernel {name} disagrees with its plain version")
+    results.append(entry)
+
+
 def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
     import torch
     from cgcnet_tpu_torch.ops import assign_head as ah
@@ -230,39 +359,8 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
     results = []
     rows_real = int(seen["B4"][0][5].sum().item())
 
-    def record(name, key, dt, out, ref, kernel_fn, plain_fn, bytes_, ops,
-               library=None, source="", replaces="", ops_dt=None):
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        tol = TOL[(key, dt)] * scale
-        ok = err <= tol
-        ms = time_ms(kernel_fn)
-        plain_ms = time_ms(plain_fn)
-        lib_ms = None
-        if library is not None:
-            # the yardstick only: a library without this call is recorded
-            # as null, it does not fail the run
-            try:
-                lib_ms = time_ms(library())
-            except (RuntimeError, NotImplementedError) as e:
-                log(f"  library call unavailable for {name}: {e}")
-        t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S[ops_dt or dt] * 1e3
-        entry = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "key": key,
-        }
-        log(f"  {name}: max_abs_err {err:.3e} (max|ref| {scale:.3e}, tol "
-            f"{tol:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
-            f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
-        if not ok:
-            raise SystemExit(f"kernel {name} disagrees with its plain version")
-        results.append(entry)
+    def record(*args, **kwargs):
+        record_kernel(results, *args, **kwargs)
 
     for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         isz = torch.empty((), dtype=dt).element_size()
@@ -845,6 +943,654 @@ def rest_phase(cfg, graph) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the whole-slide path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def slide_capture(seen: dict):
+    """For the duration, keep clones of the (args, kwargs) of the first call
+    each kernel wrapper gets at each distinct (kernel, tensor shapes and
+    other arguments) on the slide path, then call the wrapper."""
+    import torch
+
+    def clone(a):
+        return a.detach().clone() if isinstance(a, torch.Tensor) else a
+
+    def shim_for(key, wrapper, plain):
+        def shim(*args, **kwargs):
+            sig = (key, tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
+                              else a for a in args),
+                   tuple(sorted(k for k, v in kwargs.items()
+                                if v is not None)))
+            if sig not in seen:
+                seen[sig] = ([clone(a) for a in args],
+                             {k: clone(v) for k, v in kwargs.items()})
+            before = shim.launches
+            out = wrapper(*args, **kwargs)
+            # a wrapper counts through its module's global name, which may
+            # be this shim: hand the count on to the wrapper
+            wrapper.launches += shim.launches - before
+            shim.launches = before
+            return out
+        shim.launches = 0
+        return shim
+
+    with sites_replaced(shim_for):
+        yield
+
+
+def slide_grads(model, cfg, inputs, step_remat: bool):
+    """(loss, {name: grad}) of one training-mode slide forward + backward
+    (dropout off: no generator), the running statistics left alone."""
+    import torch
+    from cgcnet_tpu_torch.parallel.mega_model import mega_forward
+
+    model.zero_grad(set_to_none=True)
+    logits = mega_forward(model, cfg.model, inputs, train=True,
+                          remat_stage1=step_remat and cfg.mesh.remat_stage1,
+                          remat=step_remat and cfg.mesh.remat)
+    loss = -torch.log_softmax(logits, -1)[1]
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def zero_in_theory(name: str) -> bool:
+    """The JK attention biases: one offset shared by every layer's score,
+    which the attention softmax cancels."""
+    return name.startswith("jk") and name.endswith(".att.bias")
+
+
+def grads_close(what, g_ker, g_ref, rel, widen=None, zero_floor=None) -> None:
+    """Each gradient tensor within ``rel`` of its own max|grad| plus
+    GRAD_FLOOR of the model's largest gradient (GRAD_REL's rule), plus
+    ``widen[name]`` where given; a ``zero_in_theory`` tensor's floor is
+    ``zero_floor`` of the model's largest where given."""
+    if set(g_ker) != set(g_ref):
+        raise SystemExit(f"{what}: gradients of different parameters")
+    top = max(g.abs().max().item() for g in g_ref.values())
+    floor = {n: (zero_floor if zero_floor and zero_in_theory(n)
+                 else GRAD_FLOOR) * top for n in g_ref}
+    base = {n: rel * g_ref[n].abs().max().item() + floor[n] for n in g_ref}
+    tol = {n: base[n] + (widen[n] if widen else 0.0) for n in g_ref}
+    diff = {n: (g_ker[n] - g_ref[n]).abs().max().item() for n in g_ref}
+    ratio = {n: diff[n] / tol[n] for n in g_ref}
+    w = max(ratio, key=ratio.get)
+    bare = max(diff[n] / base[n] for n in g_ref)
+    # tensors whose tolerance the floor sets (it outweighs the rest)
+    by_floor = sorted(n for n in g_ref if floor[n] > tol[n] - floor[n])
+    log(f"  {what}: worst gradient {w} at {ratio[w]:.3f} of {rel:.3g} x "
+        f"max|grad| + {floor[w]:.3e}"
+        + (f" + {BF16_WIDEN:g}x the plain bf16 vs f32 distance "
+           f"({widen[w]:.3e} there; {bare:.3f} of the rule alone)"
+           if widen else "")
+        + f" ({len(ratio)} tensors; {len(by_floor)} with the tolerance set "
+        "by the floor: "
+        + ", ".join(f"{n} (diff {diff[n]:.3e}, floor {floor[n]:.3e})"
+                    for n in by_floor[:6])
+        + (", ..." if len(by_floor) > 6 else "") + ")")
+    if not ratio[w] <= 1.0:
+        raise SystemExit(f"{what}: gradient {w} out of tolerance")
+    bad = [n for n, g in g_ker.items() if not torch_isfinite(g)]
+    if bad:
+        raise SystemExit(f"{what}: gradients not finite: {bad}")
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def slide_model(cfg, ckpt, device):
+    """A CGCNet of ``cfg`` with the checkpoint's tensors (cli.slide's
+    load_partial), on ``device``."""
+    from cgcnet_tpu_torch.cli.slide import load_partial
+    from cgcnet_tpu_torch.nn.model import CGCNet
+
+    model = CGCNet(cfg.model)
+    copied, skipped = load_partial(model, ckpt)
+    if skipped or len(copied) != len(model.state_dict()):
+        raise SystemExit(f"checkpoint load: copied {len(copied)}, skipped "
+                         f"{skipped}")
+    return model.to(device).eval()
+
+
+def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
+    """Phases 8-10 (see the module docstring); captures the slide kernels'
+    inputs into ``seen``. Returns the launch counts per path and the
+    numbers of the slide path."""
+    import numpy as np
+    import torch
+    from cgcnet_tpu_torch.cli import slide as slide_cli
+    from cgcnet_tpu_torch.config import Config
+    from cgcnet_tpu_torch.ops.assign_head import chunk_plan, pick_chunk
+    from cgcnet_tpu_torch.parallel.mega_graph import build_bsr_tables
+    from cgcnet_tpu_torch.parallel.mega_model import (
+        mega_forward,
+        prepare_mega_inputs,
+    )
+    from cgcnet_tpu_torch.parallel.mega_train import (
+        make_optimizer,
+        make_slide_train_step,
+    )
+    from cgcnet_tpu_torch.parallel.slide_setup import (
+        build_slide_inputs,
+        synthetic_slide,
+    )
+
+    out: dict = {}
+    base = ["--synthetic", "--nuclei", str(SLIDE_NUCLEI), "--shards", "1",
+            *(["--cpu"] if device.type == "cpu" else [])]
+
+    # ---- phase 8: serving ----
+    log("phase 8: slide serving (cli.slide, 100k nuclei, bf16, --slides 3)")
+    zero_counts()
+    t0 = time.time()
+    res = slide_cli.main([*base, "--ckpt", str(ckpt), "--slides",
+                          str(SLIDE_STREAM), *SLIDE_DTYPE])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    builds, forwards = 1 + SLIDE_STREAM, 2 + SLIDE_STREAM
+    want = {k: SLIDE_BUILD.get(k, 0) * builds
+            + SLIDE_FORWARD.get(k, 0) * forwards for k in KERNELS}
+    log(f"  cli.slide: {wall:.1f} s wall; graph {res['t_graph_s'] * 1e3:.1f} "
+        f"ms, partition {res['t_part_s'] * 1e3:.1f} ms, forward "
+        f"{res['t_fwd_s'] * 1e3:.1f} ms (host clock); logits "
+        f"{res['logits'].tolist()}, grade {res['pred'] + 1}; stream "
+        f"{res['slides_per_s']:.3f} slides/s, preds {res['stream_preds']}, "
+        f"table shape sets {res['shape_sets']}; launches {counts} "
+        f"({builds} builds x {SLIDE_BUILD} + {forwards} forwards x "
+        f"{SLIDE_FORWARD})")
+    if counts != want:
+        raise SystemExit(f"cli.slide launches {counts} != {want}")
+    if (not res["bsr"] or res["cap"] != SLIDE_CAP or res["shape_sets"] != 1
+            or not np.isfinite(res["logits"]).all()
+            or res["logits"].shape != (3,)):
+        raise SystemExit(f"cli.slide result {res}")
+    out.update(slide_forward_host_ms=res["t_fwd_s"] * 1e3,
+               slide_graph_ms=res["t_graph_s"] * 1e3,
+               slide_partition_ms=res["t_part_s"] * 1e3,
+               slides_per_s=res["slides_per_s"], slide_cli_wall_s=wall,
+               slide_logits=res["logits"].tolist())
+    paths = {"slide_serve": counts}
+
+    cfg = Config().apply_overrides(SLIDE_DTYPE)
+    feats, coords = synthetic_slide(SLIDE_NUCLEI)
+    with slide_capture(seen):
+        build = build_slide_inputs(cfg, feats, coords, 1, device)
+    inputs = build.inputs
+    model = slide_model(cfg, ckpt, device)
+    with torch.no_grad(), slide_capture(seen):
+        logits = mega_forward(model, cfg.model, inputs)
+    cfg32 = Config()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: mega_forward(model, cfg.model, inputs),
+                         reps=5, warmup=1)
+        with sites_replaced(lambda key, wrapper, plain: plain):
+            plain_logits = mega_forward(model, cfg.model, inputs)
+            plain32 = mega_forward(model, cfg32.model, inputs)
+    err = (logits - plain_logits).abs().max().item()
+    spread = BF16_WIDEN * (plain_logits - plain32).abs().max().item()
+    lim = LOGIT_ATOL + LOGIT_RTOL * plain_logits.abs().max().item() + spread
+    log(f"  forward {fwd_ms:.3f} ms (median of 5, CUDA events); logits "
+        f"{logits.tolist()} vs plain versions on the card "
+        f"{plain_logits.tolist()} (f32 plain {plain32.tolist()}): max abs "
+        f"diff {err:.3e} (tol {lim:.3e}: the f32 rule plus {BF16_WIDEN:g}x "
+        f"the plain bf16 vs f32 distance, {spread:.3e}); same grade as "
+        f"cli.slide: "
+        f"{int(logits.argmax()) == res['pred']}")
+    if not err <= lim or int(logits.argmax()) != res["pred"]:
+        raise SystemExit("slide logits: kernels vs plain versions")
+    out["slide_forward_ms"] = fwd_ms
+
+    def step_hold(cfg_, remat, what):
+        """One step's loss and gradients, kernels against the plain
+        versions on the card at GRAD_REL's rule with the bf16 floor, widened
+        by BF16_WIDEN x the distance between the plain bf16 step and the
+        plain f32 step (two right computations of the step; the GIN
+        precedent of phase 6); the bf16 floor for the zero-in-theory
+        gradients only."""
+        g_ker = slide_grads(model, cfg_, inputs, remat)
+        with sites_replaced(lambda key, wrapper, plain: plain):
+            g_plain = slide_grads(model, cfg_, inputs, remat)
+            g_32 = slide_grads(model, cfg_.apply_overrides(
+                ["model.compute_dtype=float32"]), inputs, remat)
+        spread = {n: BF16_WIDEN * (g_plain[1][n] - g_32[1][n]).abs().max()
+                  .item() for n in g_plain[1]}
+        lim = (LOGIT_ATOL + LOGIT_RTOL * abs(g_plain[0])
+               + BF16_WIDEN * abs(g_plain[0] - g_32[0]))
+        log(f"  {what} one step: loss {g_ker[0]:.6f} (kernels) vs "
+            f"{g_plain[0]:.6f} (plain versions on the card), f32 plain "
+            f"{g_32[0]:.6f}; tol {lim:.3e}")
+        if not abs(g_ker[0] - g_plain[0]) <= lim:
+            raise SystemExit(f"{what} loss: kernels vs plain versions")
+        grads_close(f"{what} step gradients, kernels vs plain versions on "
+                    "the card", g_ker[1], g_plain[1], GRAD_REL, widen=spread,
+                    zero_floor=BF16_FLOOR)
+
+    # ---- phase 9: training ----
+    log("phase 9: slide training (100k nuclei, bf16, no chunking)")
+    step_hold(cfg, False, "slide")
+
+    def train_steps(cfg_, n_steps, per_step, remat_stage1, what):
+        m = slide_model(cfg_, ckpt, device).train()
+        params0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+        stats0 = {n: b.clone() for n, b in m.named_buffers()}
+        step = make_slide_train_step(m, cfg_.model, make_optimizer(m, 1e-3),
+                                     remat_stage1=remat_stage1)
+        totals, times, losses = expected({}), [], []
+        for i in range(n_steps):
+            gen = torch.Generator(device=device).manual_seed(100 + i)
+            zero_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if i == 0:
+                ctx = slide_capture(seen)
+            else:
+                ctx = contextlib.nullcontext()
+            with ctx:
+                start.record()
+                loss = step(inputs, 1, gen)
+                end.record()
+                end.synchronize()
+            counts = read_counts()
+            if counts != expected(per_step):
+                raise SystemExit(f"{what} step {i}: launches {counts} != "
+                                 f"{per_step}")
+            for k, v in counts.items():
+                totals[k] += v
+            times.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        moved = [n for n, p in m.named_parameters()
+                 if not torch.equal(p.detach(), params0[n])]
+        stats_moved = [n for n, b in m.named_buffers()
+                       if not torch.equal(b, stats0[n])]
+        if (not np.isfinite(losses).all() or len(moved) != len(params0)
+                or len(stats_moved) != len(stats0)):
+            raise SystemExit(
+                f"{what}: losses {losses}, parameters changed "
+                f"{len(moved)}/{len(params0)}, running statistics "
+                f"{len(stats_moved)}/{len(stats0)}")
+        med = statistics.median(times[1:])
+        log(f"  {n_steps} {what} steps: launches per step {per_step}, losses "
+            f"{[round(v, 4) for v in losses]}, step {med:.3f} ms (median of "
+            f"{n_steps - 1} after the first, CUDA events; all "
+            f"{[round(v, 2) for v in times]}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return totals, med
+
+    torch.cuda.reset_peak_memory_stats()
+    paths["slide_train"], out["slide_step_ms"] = train_steps(
+        cfg, SLIDE_TRAIN_STEPS, SLIDE_TRAIN_PER_STEP, False, "slide train")
+    out["slide_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # cli.slide --train-epochs 2 --out, then the written file served again
+    zero_counts()
+    t0 = time.time()
+    ft = tmp / "slide_finetuned.pt"
+    res_ft = slide_cli.main([*base, "--ckpt", str(ckpt), "--train-epochs",
+                             "2", "--out", str(ft), *SLIDE_DTYPE])
+    res_back = slide_cli.main([*base, "--ckpt", str(ft), *SLIDE_DTYPE])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k, v in counts.items():
+        paths["slide_train"][k] += v
+    log(f"  cli.slide --train-epochs 2 --out: losses {res_ft['losses']}, "
+        f"fine-tuned logits {res_ft['logits_finetuned'].tolist()}; served "
+        f"from the written file {res_back['logits'].tolist()}; "
+        f"{time.time() - t0:.1f} s wall, launches {counts}")
+    if not (np.isfinite(res_ft["losses"]).all()
+            and np.array_equal(res_ft["logits_finetuned"], res_back["logits"])):
+        raise SystemExit("cli.slide fine-tune round trip")
+
+    # ---- phase 10: the capacity path ----
+    log("phase 10: capacity path (assign_tail_chunk=65536, remat_stage1)")
+    cap_cfg = cfg.apply_overrides(SLIDE_CAPACITY)
+    ch = pick_chunk(build.cap, cap_cfg.model.assign_tail_chunk)
+    plan = chunk_plan(build.cap, ch)
+    log(f"  chunk plan over {build.cap} rows: {plan}")
+    if plan != (CAP_CHUNK, SLIDE_CAP // CAP_CHUNK, SLIDE_CAP % CAP_CHUNK) \
+            or plan[1] != 1 or not plan[2]:
+        raise SystemExit(f"chunk plan {plan}: not one full chunk and a "
+                         "remainder")
+    step_hold(cap_cfg, True, "capacity")
+    torch.cuda.reset_peak_memory_stats()
+    paths["slide_capacity"], out["capacity_step_ms"] = train_steps(
+        cap_cfg, SLIDE_CAP_STEPS, SLIDE_CAP_PER_STEP, True, "capacity")
+    out["capacity_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, inputs, build
+    torch.cuda.empty_cache()
+
+    # ---- card against CPU: a small f32 slide, tables built by hand ----
+    log("  card vs CPU: f32 slide of 8192 nuclei, the same tables on both")
+    cfg32 = Config()
+    f, c = synthetic_slide(SMALL_SLIDE_NUCLEI, seed=7)
+    b = build_slide_inputs(cfg32, f, c, 1, device)
+    tables = build_bsr_tables(b.part)
+    cpu_in = prepare_mega_inputs(b.inputs.x.cpu().numpy(), b.part, "cpu",
+                                 n_real=b.n, bsr=tables)
+    m_gpu = slide_model(cfg32, ckpt, device)
+    m_cpu = slide_model(cfg32, ckpt, "cpu")
+    zero_counts()
+    with torch.no_grad():
+        lg = mega_forward(m_gpu, cfg32.model, b.inputs).cpu().numpy()
+        lc = mega_forward(m_cpu, cfg32.model, cpu_in).numpy()
+    loss_g, grads_g = slide_grads(m_gpu, cfg32, b.inputs, False)
+    loss_c, grads_c = slide_grads(m_cpu, cfg32, cpu_in, False)
+    counts = read_counts()
+    log(f"  logits card {lg.tolist()} vs CPU {lc.tolist()} (atol "
+        f"{LOGIT_ATOL}, rtol {LOGIT_RTOL}); loss {loss_g:.7f} vs "
+        f"{loss_c:.7f}; card launches {counts}")
+    if not (np.allclose(lg, lc, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+            and np.isclose(loss_g, loss_c, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)):
+        raise SystemExit("small slide: card vs CPU")
+    if counts["B8"] or not counts["B2"] or not counts["B4"]:
+        raise SystemExit(f"small f32 slide: launches {counts}")
+    grads_close("small slide step gradients, card vs CPU (GRAD_REL rule)",
+                {n: g.cpu() for n, g in grads_g.items()}, grads_c, GRAD_REL)
+    out["paths"] = paths
+    return out
+
+
+def slide_kernel_phase(seen: dict, device) -> list[dict]:
+    """B8, B9a, B9b, B3, B4 (with ``c_out``), B5 and the int8 B1/B2 legs
+    against their plain versions on the card, in f32 and bf16, on the inputs
+    captured from phases 8-10 (one per distinct call shape), timed like
+    phase 3."""
+    import numpy as np
+    import torch
+    from cgcnet_tpu_torch.config import Config
+    from cgcnet_tpu_torch.dataflow import native
+    from cgcnet_tpu_torch.ops import assign_head as ah
+    from cgcnet_tpu_torch.ops import bsr
+    from cgcnet_tpu_torch.parallel.mega_graph import (
+        build_bsr_tables,
+        partition_graph,
+    )
+    from cgcnet_tpu_torch.parallel.slide_setup import (
+        spatial_sort_order,
+        synthetic_slide,
+    )
+
+    t = bsr.TILE
+    results = []
+
+    def record(*args, **kwargs):
+        # the slide's plain versions take 15-17 ms at 100k: fewer repeats
+        kwargs.setdefault("paths", SLIDE_PATHS)
+        record_kernel(results, *args, reps=10, plain_reps=3, **kwargs)
+
+    def calls(key):
+        return [v for (k, _, _), v in seen.items() if k == key]
+
+    b8_calls = calls("B8")
+    names = []
+    for args, kw in b8_calls:
+        x = args[3]
+        if kw.get("acc") is not None:
+            names.append(f"A^T g + acc (split outputs) F={x.shape[-1]}")
+        elif kw.get("halo") is not None:
+            names.append(f"A@S F={x.shape[-1]}")
+        else:
+            names.append(f"A^T g F={x.shape[-1]}")
+    log(f"  captured B8 calls: {names}")
+    if not any("acc" in n for n in names) or len(b8_calls) < 3:
+        raise SystemExit(f"B8 calls captured: {names}")
+
+    # the halo-window variant: shard 0 of a 4-shard stripe-sorted partition
+    cfg = Config()
+    shards = HALO_SHARDS
+    f0, c0 = synthetic_slide(HALO_NUCLEI)
+    q = t * bsr.G_BAND * shards
+    cap = -(-HALO_NUCLEI // q) * q
+    order = spatial_sort_order(c0, cfg.data.max_edge_distance, stripes=shards,
+                               shard_rows=cap // shards)
+    nbr, mask = native.radius_knn(c0[order], cfg.data.max_edge_distance,
+                                  cfg.data.max_neighbours)
+    nbrp = np.tile(np.arange(cap, dtype=np.int32)[:, None], (1, nbr.shape[1]))
+    maskp = np.zeros((cap, nbr.shape[1]), np.float32)
+    nbrp[:len(nbr)], maskp[:len(nbr)] = nbr, mask
+    part = partition_graph(nbrp, maskp, shards)
+    tab = build_bsr_tables(part)
+    if tab is None or tab.win_halo is None:
+        raise SystemExit("the 4-shard partition built no halo-window table")
+    ns = cap // shards
+    nb0 = torch.as_tensor(part.nbr_remap[0], device=device)
+    off0 = torch.as_tensor(part.nbr_mask[0], device=device) * (
+        nb0 != torch.arange(ns, device=device)[:, None])
+    bc0 = torch.as_tensor(tab.blk_cols[0], device=device)
+    bm0 = torch.as_tensor(tab.blk_mask[0], device=device)
+    vals0 = bsr.bsr_build_blocks(nb0[None], off0[None], bc0[None], bm0[None],
+                                 torch.int8)
+    gen = torch.Generator(device=device).manual_seed(11)
+    f_s = HALO_F
+    x_h = torch.randn((1, ns, f_s), generator=gen, device=device)
+    halo_h = torch.randn((1, tab.nc - ns, f_s), generator=gen, device=device)
+    log(f"  halo windows: shard 0 of {shards}, {ns} rows, halo "
+        f"{tab.nc - ns} rows, M {tab.blk_cols.shape[-1]}")
+    b8_cases = [(n, a, k) for n, (a, k) in zip(names, b8_calls)]
+    b8_cases.append((
+        f"A@S halo windows (shard 0 of {shards}) F={f_s}",
+        [vals0, bc0[None], torch.as_tensor(tab.win_base[0:1], device=device),
+         x_h],
+        {"ns_rows": ns, "halo": halo_h,
+         "halo_win": torch.as_tensor(tab.win_halo[0:1], device=device),
+         "blk_mask": bm0[None]},
+    ))
+    # the epilogue option, on the training A@S leg's inputs
+    base_args, base_kw = next((a, k) for n, (a, k) in zip(names, b8_calls)
+                              if n.startswith("A@S F=1152"))
+    r_rows = base_args[1].shape[1] * t
+    sw = torch.zeros((1, r_rows, 128), device=device)
+    sw[0, :, 0] = torch.rand(r_rows, generator=gen, device=device)
+    sw[0, :, 1] = 0.4
+    b8_cases.append(("A@S + epilogue_sw F=1152", base_args,
+                     {**base_kw, "epilogue_sw": sw}))
+
+    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        isz = torch.empty((), dtype=dt).element_size()
+        tag = "f32" if dt == torch.float32 else "bf16"
+        # ---- B8 ----
+        for name, args, kw in b8_cases:
+            vals, blk_cols, win, x = args
+            x = x.to(dt)
+            kw = {k: (v.to(dt) if k in ("halo", "acc", "epilogue_sw")
+                      and v is not None else v) for k, v in kw.items()}
+            a = (vals, blk_cols, win, x)
+            out = bsr.bsr_matmul_banded(*a, **kw)
+            ref = bsr.bsr_matmul_banded_plain(*a, **kw)
+            bm = kw.get("blk_mask")
+            live = (bm > 0) if bm is not None else vals.reshape(
+                *vals.shape[:3], -1).ne(0).any(-1)
+            nnzb = int(live.sum().item())
+            _, r, m = blk_cols.shape
+            f = x.shape[-1]
+            nh = kw["halo"].shape[1] if kw.get("halo") is not None else 0
+            extra = sum(kw[k].numel() * isz for k in ("acc", "epilogue_sw")
+                        if kw.get(k) is not None)
+            record(
+                f"B8 bsr_matmul_banded {name} {tag} R={r} M={m}", "B8",
+                dt_name, out, ref,
+                lambda a=a, kw=kw: bsr.bsr_matmul_banded(*a, **kw),
+                lambda a=a, kw=kw: bsr.bsr_matmul_banded_plain(*a, **kw),
+                # real block slots (int8), their column ids, x and the halo
+                # read once, the output written once, acc / sw read once
+                bytes_=nnzb * t * t + r * m * 4 + (x.shape[1] + nh) * f * isz
+                + r * t * f * isz + extra,
+                ops=2 * nnzb * t * t * f,
+                library=lambda a=a, kw=kw, live=live:
+                    _banded_library_call(*a, kw.get("halo"), live),
+                source="cgcnet_tpu_torch/csrc/bsr_banded.cu",
+                replaces=("cgcnet_tpu/ops/pallas/bsr_kernel.py:966 (:1097 "
+                          "_banded_halo_kernel)" if "halo windows" in name
+                          else "cgcnet_tpu/ops/pallas/bsr_kernel.py:966 "
+                          "(:1181 _banded_kernel)"),
+                # the halo-window kernel (:1097) runs at more than one
+                # shard only: no path of this run launches it
+                paths=() if "halo windows" in name else SLIDE_PATHS,
+            )
+        # ---- B3, B4 (serving, and training's lane-padded c_out) and B5
+        # (the training call and the capacity path's chunks) at the slide's
+        # shapes ----
+        for (p, nn3), _ in calls("B3"):
+            p = p.to(dt)
+            b, n, c = p.shape
+            rr = int(nn3.sum().item())
+            record(
+                f"B3 l2relu_stats slide {tag} N={n} C={c}", "B3", dt_name,
+                torch.stack(ah.l2relu_stats(p, nn3)),
+                torch.stack(ah.l2relu_stats_plain(p, nn3)),
+                lambda p=p, nn3=nn3: ah.l2relu_stats(p, nn3),
+                lambda p=p, nn3=nn3: ah.l2relu_stats_plain(p, nn3),
+                bytes_=rr * c * isz + b * 4 + 2 * c * 4,
+                ops=6 * rr * c, ops_dt="float32",
+                source="cgcnet_tpu_torch/csrc/assign_tail.cu",
+                replaces="cgcnet_tpu/ops/pallas/assign_head.py:180",
+            )
+        for args, _ in calls("B4"):
+            x12, p, k12, k3f, const, nn4 = args[:6]
+            c_out = args[6] if len(args) > 6 else None
+            h4 = (x12.to(dt), p.to(dt), k12, k3f, const, nn4, c_out)
+            b, n, c = p.shape
+            f12 = x12.shape[-1]
+            co = c_out or c
+            rr = int(nn4.sum().item())
+            out, _ = ah.assign_head_softmax_pre(*h4)
+            if out.shape[-1] != co or out[..., c:].any():
+                raise SystemExit(f"B4 c_out={c_out}: pad columns are not "
+                                 "exact zeros")
+            record(
+                f"B4 assign_head_softmax_pre slide {tag} N={n} F12={f12} "
+                f"C={c} c_out={co}", "B4", dt_name, out,
+                ah.assign_head_softmax_pre_plain(*h4)[0],
+                lambda h4=h4: ah.assign_head_softmax_pre(*h4),
+                lambda h4=h4: ah.assign_head_softmax_pre_plain(*h4),
+                bytes_=rr * (f12 + c) * isz + (f12 + c) * c * isz + c * 4
+                + b * n * co * isz,
+                ops=2 * rr * (f12 + c) * c,
+                source="cgcnet_tpu_torch/csrc/assign_head.cu",
+                replaces="cgcnet_tpu/ops/pallas/assign_head.py:286",
+            )
+        for (p, dh, u, w, nn5), _ in calls("B5"):
+            a5 = (p.to(dt), dh.to(dt), u, w, nn5)
+            b, n, c = p.shape
+            rr = int(nn5.sum().item())
+            out = ah.assign_tail_bwd(*a5)
+            if out[:, rr:].any():
+                raise SystemExit("B5: rows past n_nodes are not exactly 0")
+            record(
+                f"B5 assign_tail_bwd slide {tag} N={n} C={c}", "B5", dt_name,
+                out, ah.assign_tail_bwd_plain(*a5),
+                lambda a5=a5: ah.assign_tail_bwd(*a5),
+                lambda a5=a5: ah.assign_tail_bwd_plain(*a5),
+                bytes_=(2 * rr + b * n) * c * isz + 2 * c * 4 + b * 4,
+                ops=10 * rr * c, ops_dt="float32",
+                source="cgcnet_tpu_torch/csrc/assign_tail.cu",
+                replaces="cgcnet_tpu/ops/pallas/assign_head.py:423",
+            )
+        # ---- B9a, B9b: the capacity forward's full-slide calls ----
+        (x12, x3, kc3, b3, k12, k3f, const, n_nodes), _ = max(
+            calls("B9a"), key=lambda v: v[0][1].shape[1])
+        n, f3, c = x3.shape[1], x3.shape[2], kc3.shape[1]
+        f12 = x12.shape[-1]
+        rows_real = int(n_nodes.sum().item())
+        a9 = (x12.to(dt), x3.to(dt), kc3, b3, k12, k3f, const, n_nodes)
+        record(
+            f"B9a assign_head_softmax_pre_lin {tag} N={n} F12={f12} F3={f3} "
+            f"C={c}", "B9a", dt_name,
+            ah.assign_head_softmax_pre_lin(*a9),
+            ah.assign_head_softmax_pre_lin_plain(*a9),
+            lambda: ah.assign_head_softmax_pre_lin(*a9),
+            lambda: ah.assign_head_softmax_pre_lin_plain(*a9),
+            bytes_=rows_real * (f12 + f3) * isz
+            + (f3 + 1 + f12 + c) * c * isz + c * 4 + n * c * isz,
+            ops=2 * rows_real * c * (f3 + f12 + c),
+            source="cgcnet_tpu_torch/csrc/assign_head.cu",
+            replaces="cgcnet_tpu/ops/pallas/assign_head.py:882",
+        )
+        (x3b, kc3b, b3b, nnb), _ = calls("B9b")[0]
+        a9b = (x3b.to(dt), kc3b, b3b, nnb)
+        record(
+            f"B9b l2relu_stats_lin {tag} N={n} F3={f3} C={c}", "B9b", dt_name,
+            torch.stack(ah.l2relu_stats_lin(*a9b)),
+            torch.stack(ah.l2relu_stats_lin_plain(*a9b)),
+            lambda: ah.l2relu_stats_lin(*a9b),
+            lambda: ah.l2relu_stats_lin_plain(*a9b),
+            bytes_=rows_real * f3 * isz + (f3 + 1) * c * isz + 2 * c * 4,
+            # p formed per element (the F3-term dot), then the stats
+            ops=2 * rows_real * c * f3 + 6 * rows_real * c,
+            source="cgcnet_tpu_torch/csrc/assign_tail.cu",
+            replaces="cgcnet_tpu/ops/pallas/assign_head.py:943",
+        )
+        # ---- int8 B1: the forward and transpose blocks of the slide ----
+        for (nbr_, w_, bc_, bm_, _dt), _ in calls("B1"):
+            bb, nn_, k = nbr_.shape
+            r, m = bc_.shape[1:]
+            a1 = (nbr_, w_, bc_, bm_, torch.int8)
+            which = "A" if nn_ == SLIDE_CAP else "A^T"
+            record(
+                f"B1 bsr_build_blocks int8 {which} (x {tag} slide) N={nn_} "
+                f"K={k} M={m}", "B1", dt_name,
+                bsr.bsr_build_blocks(*a1), bsr.bsr_build_blocks_plain(*a1),
+                lambda a1=a1: bsr.bsr_build_blocks(*a1),
+                lambda a1=a1: bsr.bsr_build_blocks_plain(*a1),
+                bytes_=nn_ * k * 8 + r * m * 8 + r * m * t * t,
+                ops=nn_ * k, ops_dt="float32",
+                source="cgcnet_tpu_torch/csrc/bsr_build.cu",
+                replaces="cgcnet_tpu/ops/pallas/bsr_kernel.py:275",
+            )
+        # ---- int8 B2: every width and direction of the slide's legs ----
+        for (vals, bc_, x_), _ in calls("B2"):
+            x = x_.to(dt)
+            _, r, m = bc_.shape
+            nc, f = x.shape[1], x.shape[2]
+            live = vals.reshape(*vals.shape[:3], -1).ne(0).any(-1)
+            nnzb = int(live.sum().item())
+            which = "A" if r * t == SLIDE_CAP else "A^T"
+            record(
+                f"B2 bsr_matmul int8 {which} {tag} N={nc} M={m} F={f}", "B2",
+                dt_name, bsr.bsr_matmul(vals, bc_, x),
+                bsr.bsr_matmul_plain(vals, bc_, x),
+                lambda x=x, v=vals, c_=bc_: bsr.bsr_matmul(v, c_, x),
+                lambda x=x, v=vals, c_=bc_: bsr.bsr_matmul_plain(v, c_, x),
+                bytes_=nnzb * t * t + r * m * 4 + nc * f * isz
+                + r * t * f * isz,
+                ops=2 * nnzb * t * t * f,
+                library=lambda x=x, v=vals, c_=bc_, live=live:
+                    _bsr_library_call(v.to(x.dtype), c_, live.float(), x),
+                source="cgcnet_tpu_torch/csrc/bsr_matmul.cu",
+                replaces="cgcnet_tpu/ops/pallas/bsr_kernel.py:400",
+            )
+    return results
+
+
+def _banded_library_call(vals, blk_cols, win, x, halo, live):
+    """One PyTorch call computing B8's function: ``torch.sparse_bsr_tensor``
+    over the live block slots (values converted to x's type once, not
+    timed) times [x ++ halo] (concatenated once, not timed). A yardstick;
+    the port never calls it."""
+    import torch
+
+    xx = x[0] if halo is None else torch.cat([x[0], halo[0]], dim=0)
+    keep = live.reshape(-1)
+    _, r, m = blk_cols.shape
+    t = vals.shape[-1]
+    counts = live.reshape(r, m).sum(-1)
+    crow = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(
+        torch.int64)
+    a = torch.sparse_bsr_tensor(
+        crow, blk_cols.reshape(-1)[keep].to(torch.int64),
+        vals.reshape(r * m, t, t)[keep].to(x.dtype),
+        size=(r * t, xx.shape[0]),
+    )
+    return lambda: a @ xx
+
+
 def slice_phase(tmp: Path, device) -> dict:
     import torch
     from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
@@ -903,14 +1649,22 @@ def slice_phase(tmp: Path, device) -> dict:
     paths = {"serve": serve_counts, "train": train["counts"],
              "gin_serve": gin_serve_counts, "gin_train": gin_train["counts"],
              "rest": rest_counts}
+    del graph
+    torch.cuda.empty_cache()
+
+    slide_seen: dict = {}
+    slide = slide_phases(tmp, device, tmp / "model_SAGE.pt", slide_seen)
+    paths.update(slide.pop("paths"))
+    log("  slide kernels vs plain versions (inputs of phases 8-10)")
+    kernels += slide_kernel_phase(slide_seen, device)
     for entry in kernels:
         key = entry.pop("key")
-        by_path = {name: counts[key] for name, counts in paths.items()}
+        by_path = {name: paths[name][key] for name in entry.pop("paths")}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-        if entry["launches"] == 0:
+        if by_path and entry["launches"] == 0:
             raise SystemExit(f"{entry['name']}: no launch on any path")
-    return {"kernels": kernels, "forward_ms_per_batch": fwd_ms,
+    return {**slide, "kernels": kernels, "forward_ms_per_batch": fwd_ms,
             "predict_wall_s": wall, "train_step_ms": train["step_ms"],
             "train_steps": train["steps"], "train_cli_wall_s": train["cli_wall_s"],
             "gin_forward_ms_per_batch": gin_fwd_ms, "gin_predict_wall_s": gin_wall,

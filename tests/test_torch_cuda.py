@@ -1,4 +1,4 @@
-"""PyTorch port, card only: each hand-written CUDA kernel (B1-B7) against
+"""PyTorch port, card only: each hand-written CUDA kernel (B1-B9b) against
 its plain PyTorch version on the same CUDA tensors, and the backward
 Functions around them against the CPU, at small shapes.
 
@@ -8,8 +8,8 @@ only PyTorch; skips without a CUDA device. On the card:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances are fractions of max|plain|: f32 — B1 exact (same f32 sums in
-the same slot order), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4, B6 1e-5, B7
-1e-4 (sums in another order); bf16 — the two roundings of the stored result may land one bf16
+the same slot order; int8 too), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4, B6
+1e-5, B7 1e-4, B8 1e-4, B9a 1e-5, B9b 1e-5 (sums in another order); bf16 — the two roundings of the stored result may land one bf16
 step apart, up to 2^-7 of the value, so 2^-6. Gradients, card vs CPU:
 1e-4 of max|grad| (f32 sums in another order through the same formulas).
 """
@@ -276,3 +276,100 @@ def test_b6_b7_backward_matches_cpu(device):
     got = run_b7(device)
     assert bsr.bsr_gather_sum.launches == launches + 2  # forward and backward
     _grads_close(got, run_b7("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the whole-slide kernels: B8, B9a, B9b, int8 B1/B2, B4 with c_out
+# ---------------------------------------------------------------------------
+
+def _banded(seed, r=16, m=4, ns_tiles=16, h_total=1):
+    """Band-limited int8 blocks with halo columns in [ns_tiles, +h_total)."""
+    rng = np.random.default_rng(seed)
+    cols = np.zeros((1, r, m), np.int32)
+    mask = np.zeros((1, r, m), np.float32)
+    for ri in range(r):
+        cand = list(range(max(0, ri - 2), min(ns_tiles - 1, ri + 1) + 1))
+        sel = sorted(rng.choice(cand, size=min(2, len(cand)),
+                                replace=False).tolist())
+        sel.append(ns_tiles + (ri // 4) * (h_total - 1) // max(r // 4 - 1, 1))
+        cols[0, ri, :len(sel)] = sel
+        mask[0, ri, :len(sel)] = 1.0
+    vals = ((rng.uniform(size=(1, r, m, 128, 128)) > 0.7)
+            * mask[..., None, None]).astype(np.int8)
+    return cols, mask, vals
+
+
+def _close_to(out, ref, tol):
+    """``_close`` with the CPU reference moved to the output's device."""
+    if isinstance(out, tuple):
+        for o, r in zip(out, ref):
+            _close(o, r.to(o.device), tol)
+    else:
+        _close(out, ref.to(out.device), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slide_kernels_match_plain(device, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    tol9 = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    gen = torch.Generator().manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    # B8: resident halo tail (and the tail inside x), acc with split outputs,
+    # the epilogue, halo windows
+    cols, mask, vals = _banded(1)
+    win = torch.from_numpy(bsr.band_window_table(cols[0], mask[0], 16))[None]
+    c, m, v = (torch.from_numpy(a) for a in (cols, mask, vals))
+    x, halo = rnd(1, 16 * 128, 1152).to(dtype), rnd(1, 128, 1152).to(dtype)
+    acc = rnd(1, 3 * 512, 1152).to(dtype)
+    sw = torch.zeros(1, 16 * 128, 128)
+    sw[0, :, 0], sw[0, :, 1] = rnd(16 * 128), 0.4
+    xx = torch.cat([x, halo], 1)
+    cases = [
+        ((v, c, win, x, 2048), {"halo": halo}),
+        ((v, c, win, xx, 2048), {}),
+        ((v, c, win, xx, 2048), {"acc": acc}),
+        ((v, c, win, x, 2048), {"halo": halo, "epilogue_sw": sw.to(dtype)}),
+    ]
+    cols_h, mask_h, vals_h = _banded(2, h_total=12)
+    tabs = bsr.band_window_table_halo(cols_h[0], mask_h[0], 16, 12)
+    assert tabs is not None
+    ch, vh = torch.from_numpy(cols_h), torch.from_numpy(vals_h)
+    cases.append(((vh, ch, torch.from_numpy(tabs[0])[None], x, 2048),
+                  {"halo": rnd(1, 12 * 128, 1152).to(dtype),
+                   "halo_win": torch.from_numpy(tabs[1])[None]}))
+    for args, kw in cases:
+        ref = bsr.bsr_matmul_banded_plain(*args, **kw)
+        out = bsr.bsr_matmul_banded(
+            *(a.to(device) if isinstance(a, torch.Tensor) else a
+              for a in args),
+            **{k: t.to(device) for k, t in kw.items()})
+        _close_to(out, ref, tol)
+    # int8 B1 and B2
+    g = _graph(3)
+    nbr, w, bcols, bmask = g[:4]
+    ref = bsr.bsr_build_blocks_plain(nbr, w, bcols, bmask, torch.int8)
+    out = bsr.bsr_build_blocks(nbr.to(device), w.to(device),
+                               bcols.to(device), bmask.to(device), torch.int8)
+    _close_to(out, ref, 0.0)
+    xb = rnd(*nbr.shape[:2], 40).to(dtype)
+    _close_to(bsr.bsr_matmul(out, bcols.to(device), xb.to(device)),
+              bsr.bsr_matmul_plain(ref, bcols, xb), tol)
+    # B9a, B9b, B4 with c_out
+    n, f12, f3, cc = 512, 40, 20, 1140
+    x12, x3 = rnd(1, n, f12).to(dtype), rnd(1, n, f3).to(dtype)
+    kc3, b3 = rnd(f3, cc) * 0.3, rnd(cc) * 0.1
+    k12, k3f, const = rnd(f12, cc) * 0.2, rnd(cc, cc) * 0.05, rnd(cc) * 0.1
+    nn_ = torch.tensor([450], dtype=torch.int32)
+    args = (x12, x3, kc3, b3, k12, k3f, const, nn_)
+    dev = [a.to(device) for a in args]
+    _close_to(ah.assign_head_softmax_pre_lin(*dev),
+              ah.assign_head_softmax_pre_lin_plain(*args), tol9)
+    for o, r in zip(ah.l2relu_stats_lin(*(dev[i] for i in (1, 2, 3, 7))),
+                    ah.l2relu_stats_lin_plain(*(args[i] for i in (1, 2, 3, 7)))):
+        _close_to(o, r, tol9)
+    p = ah.lin_p(x3, kc3, b3)
+    hargs = (x12, p, k12, k3f, const, nn_)
+    s, _ = ah.assign_head_softmax_pre(*(a.to(device) for a in hargs),
+                                      c_out=1152)
+    _close_to(s, ah.assign_head_softmax_pre_plain(*hargs, 1152)[0], tol9)
+    assert not s[..., cc:].any()
