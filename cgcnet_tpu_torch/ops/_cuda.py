@@ -42,20 +42,27 @@ _SIGNATURES = {
     # stream
     "cgc_bsr_matmul": [_P] * 4 + [_I] * 8 + [_P],
     # vals, blk_cols, x, halo (null: x's tail), acc (null), epilogue_sw
-    # (null), out, out_tail (null), B, R, M, ns_tiles, NX, NH, F, NA,
-    # vals_dtype, dtype, device, stream
-    "cgc_bsr_matmul_banded": [_P] * 8 + [_I] * 11 + [_P],
+    # (null), out, out_tail (null), live_slots (null: every slot), B, R, M,
+    # ns_tiles, NX, NH, F, NA, vals_dtype, dtype, device, stream
+    "cgc_bsr_matmul_banded": [_P] * 9 + [_I] * 11 + [_P],
     # nbr, w, blk_cols, blk_mask, x, out, B, N, K, R, M, NC, F, dtype,
     # device, stream
     "cgc_bsr_gather_sum": [_P] * 6 + [_I] * 9 + [_P],
-    # x12, p (B4) or h3a (B6), k12, k3f, const, n_nodes, rnorm (B4's
-    # scratch; null for B6), logits, s, B, N, F12, C, c_out, dtype, device,
+    # p (B4; null for B9a), x3, kc3 (f32 B9a), kc3t (bf16 B9a), b3,
+    # n_nodes, rnorm, B, N, F3, C, kc3t's rows and columns, dtype, device,
     # stream
-    "cgc_assign_head_pre": [_P] * 9 + [_I] * 7 + [_P],
-    "cgc_assign_head": [_P] * 9 + [_I] * 7 + [_P],
-    # x12, x3, kc3, b3, k12, k3f, const, n_nodes, rnorm, logits, s, B, N,
-    # F12, F3, C, dtype, device, stream
-    "cgc_assign_head_pre_lin": [_P] * 11 + [_I] * 7 + [_P],
+    "cgc_assign_head_rnorm": [_P] * 7 + [_I] * 8 + [_P],
+    # x12, p (B4) or h3a (B6), k12, k3f (f32; null in bf16), wpad (bf16:
+    # the padded [k12 ; k3f]; null in f32), const, n_nodes, rnorm (B4's
+    # scratch; null for B6), logits, s, B, N, F12, C, c_out, wpad's rows
+    # and columns, dtype, device, stream
+    "cgc_assign_head_pre": [_P] * 10 + [_I] * 9 + [_P],
+    "cgc_assign_head": [_P] * 10 + [_I] * 9 + [_P],
+    # x12, x3, kc3 (f32), b3, kc3t (bf16: kc3^T padded), k12, k3f (f32),
+    # wpad (bf16), const, n_nodes, rnorm, logits, s, B, N, F12, F3, C,
+    # wpad's rows and columns, kc3t's rows and columns, dtype, device,
+    # stream
+    "cgc_assign_head_pre_lin": [_P] * 13 + [_I] * 11 + [_P],
     # p, n_nodes, partial, out, B, N, C, tile_rows, dtype, device, stream
     "cgc_l2relu_stats": [_P] * 4 + [_I] * 6 + [_P],
     # x3, kc3, b3, n_nodes, partial, out, B, N, F3, C, tile_rows, dtype,
@@ -126,12 +133,15 @@ def build() -> Path:
         log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
         objs.append(str(obj))
         if proc.returncode != 0:
-            failed.append(src.name)
+            failed.append(log[-1])
     (work / "build.log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError(
-            f"nvcc failed on {failed}:\n" + "\n".join(log)[-8000:]
-        )
+        # the failing sources' own output, errors first (not the -v report
+        # of the sources that built)
+        msg = "\n".join(
+            "\n".join([ln for ln in f.splitlines() if "error" in ln][:40]
+                      + [f[:4000]]) for f in failed)
+        raise RuntimeError(f"nvcc failed:\n{msg[:12000]}")
     tmp_lib = work / lib_path.name
     link = subprocess.run(
         [exe, "-shared", "-o", str(tmp_lib), *objs],

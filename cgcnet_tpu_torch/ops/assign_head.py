@@ -31,6 +31,11 @@ bias instead of p (p = round(x3 @ kc3) + b3 formed inside the kernels, never
 stored), under ``AssignTailTrainChunkedLin``, whose backward recomputes S
 and p chunk by chunk in two phases.
 
+In bf16 the heads' product (B4, B6, B9a) runs on the tensor cores over
+one zero-padded copy of [K12 ; K3f] (``pad_head_weights``, made per call)
+and, for B9a, a transposed padded kc3 (``pad_lin_kernel``); in f32 on the
+SIMT kernel.
+
 Replaces ``cgcnet_tpu/ops/pallas/assign_head.py``: ``_fwd_call_pre`` (B4),
 ``_stats_call`` (B3), ``_bwd_call`` (B5), ``_fwd_call`` (B6),
 ``_fwd_call_pre_lin`` (B9a), ``_stats_call_lin`` (B9b),
@@ -49,6 +54,53 @@ from cgcnet_tpu_torch.ops import _cuda
 from cgcnet_tpu_torch.parallel.mega_graph import psum
 
 TILE = 128
+# the bf16 product's tiling (csrc/assign_head.cu gemm_tc_kernel): K in
+# stages of HEAD_K rows, output columns in tiles of HEAD_N, B9a's x3 padded
+# to F3_PAD columns (two k-steps of its mma.sync). The C entries take the
+# padded copies' shapes and refuse any but their own tiling's.
+HEAD_K, HEAD_N, F3_PAD = 64, 192, 32
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pad_head_weights(k12: torch.Tensor, k3f: torch.Tensor) -> torch.Tensor:
+    """[K12 ; K3f] as the bf16 product's weight operand: one zero-padded
+    copy of [round_up(F12, 64) + round_up(C, 64), round_up(C, 192)], K12 in
+    rows [0, F12), K3f in rows [round_up(F12, 64), + C), columns [0, C) —
+    every row 16-byte aligned and every tile of the kernel in bounds."""
+    f12, c = k12.shape
+    k12p = _round_up(f12, HEAD_K)
+    w = torch.zeros((k12p + _round_up(c, HEAD_K), _round_up(c, HEAD_N)),
+                    dtype=torch.bfloat16, device=k12.device)
+    w[:f12, :c] = k12
+    w[k12p:k12p + c, :c] = k3f
+    return w
+
+
+def pad_lin_kernel(kc3: torch.Tensor) -> torch.Tensor:
+    """kc3 [F3, C] transposed into a zero-padded [round_up(C, 64), F3_PAD]
+    copy: B9a's operand for the product that forms p on the tensor
+    cores (rows past C and columns past F3 are zeros)."""
+    f3, c = kc3.shape
+    if f3 > F3_PAD:
+        raise ValueError(f"the bf16 B9a product takes F3 <= {F3_PAD}, got "
+                         f"{f3}")
+    t = torch.zeros((_round_up(c, HEAD_K), F3_PAD), dtype=torch.bfloat16,
+                    device=kc3.device)
+    t[:c, :f3] = kc3.t()
+    return t
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _shape2(t: torch.Tensor | None) -> tuple[int, int]:
+    """A padded copy's (rows, columns) for the entry's check; (0, 0) for
+    none (f32)."""
+    return (0, 0) if t is None else tuple(t.shape)
 
 
 def _prefix_mask(n_nodes: torch.Tensor, n: int) -> torch.Tensor:
@@ -137,8 +189,10 @@ def _launch_head(pre: bool, x12, p, k12, k3f, const, n_nodes, c_out=None):
     if n % 128:
         raise ValueError(f"{entry}: N={n} must tile by 128")
     x12, p = x12.contiguous(), p.contiguous()
-    k12 = k12.to(dt).contiguous()
-    k3f = k3f.to(dt).contiguous()
+    bf = dt == torch.bfloat16
+    # bf16 reads only the padded copy (made below, cast as it is copied)
+    wdt = k12.dtype if bf else dt
+    k12, k3f = k12.to(wdt).contiguous(), k3f.to(wdt).contiguous()
     const = const.to(torch.float32).contiguous()
     n_nodes = n_nodes.to(torch.int32).contiguous()
     _cuda.require_cuda(entry, x12, p, k12, k3f, const, n_nodes)
@@ -149,16 +203,27 @@ def _launch_head(pre: bool, x12, p, k12, k3f, const, n_nodes, c_out=None):
     logits = s if (dt == torch.float32 and co == c) else torch.empty(
         (b, n, c), dtype=torch.float32, device=p.device
     )
-    # B4's per-row 1/||p|| scratch; B6 reads none and is given a null pointer
-    rnorm = (torch.empty((b * n,), dtype=torch.float32, device=p.device)
-             if pre else None)
+    # B4's per-row 1/||p|| scratch, launched first so the card works while
+    # the weights are padded; B6 reads none and is given a null pointer
+    rnorm = None
+    if pre:
+        rnorm = torch.empty((b * n,), dtype=torch.float32, device=p.device)
+        _cuda.launch(
+            "cgc_assign_head_rnorm", p.data_ptr(), None, None, None, None,
+            n_nodes.data_ptr(), rnorm.data_ptr(), b, n, 0, c, 0, 0,
+            _cuda.DTYPE_CODES[dt], p.device.index, _cuda.stream_of(p),
+        )
+    # bf16 runs on the tensor cores, which read only the padded weight copy
+    # (the entry checks its shape), f32 only k12 and k3f
+    wpad = pad_head_weights(k12, k3f) if bf else None
     _cuda.launch(
         entry,
-        x12.data_ptr(), p.data_ptr(), k12.data_ptr(), k3f.data_ptr(),
-        const.data_ptr(), n_nodes.data_ptr(),
-        rnorm.data_ptr() if pre else None,
+        x12.data_ptr(), p.data_ptr(), _ptr(None if bf else k12),
+        _ptr(None if bf else k3f), _ptr(wpad),
+        const.data_ptr(), n_nodes.data_ptr(), _ptr(rnorm),
         logits.data_ptr(), s.data_ptr(), b, n, x12.shape[-1], c, co,
-        _cuda.DTYPE_CODES[dt], p.device.index, _cuda.stream_of(p),
+        *_shape2(wpad), _cuda.DTYPE_CODES[dt], p.device.index,
+        _cuda.stream_of(p),
     )
     return s
 
@@ -643,8 +708,12 @@ def assign_head_softmax_pre_lin(x12, x3, kc3, b3, k12, k3f, const, n_nodes):
         raise ValueError(f"assign_head_softmax_pre_lin: N={n} must tile by "
                          f"{TILE}")
     x12, x3 = x12.contiguous(), x3.contiguous()
-    kc3, b3 = kc3.to(dt).contiguous(), b3.to(dt).contiguous()
-    k12, k3f = k12.to(dt).contiguous(), k3f.to(dt).contiguous()
+    bf = dt == torch.bfloat16
+    b3 = b3.to(dt).contiguous()
+    # bf16 reads only the padded copies (made below, cast as they are copied)
+    wdt = kc3.dtype if bf else dt
+    kc3 = kc3.to(wdt).contiguous()
+    k12, k3f = k12.to(wdt).contiguous(), k3f.to(wdt).contiguous()
     const = const.to(torch.float32).contiguous()
     n_nodes = n_nodes.to(torch.int32).contiguous()
     _cuda.require_cuda("assign_head_softmax_pre_lin", x12, x3, kc3, b3, k12,
@@ -654,13 +723,27 @@ def assign_head_softmax_pre_lin(x12, x3, kc3, b3, k12, k3f, const, n_nodes):
         (b, n, c), dtype=torch.float32, device=x3.device
     )
     rnorm = torch.empty((b * n,), dtype=torch.float32, device=x3.device)
+    # bf16 runs on the tensor cores, which read padded weight copies; the
+    # row norm (which reads kc3t) goes first, so the card works while the
+    # head's weights are padded; each entry reads either the padded copies
+    # (bf16; it checks their shapes) or kc3, k12 and k3f (f32)
+    kc3t = pad_lin_kernel(kc3) if bf else None
+    kc3_ = None if bf else kc3
+    _cuda.launch(
+        "cgc_assign_head_rnorm", None, x3.data_ptr(), _ptr(kc3_),
+        _ptr(kc3t), b3.data_ptr(), n_nodes.data_ptr(), rnorm.data_ptr(), b,
+        n, x3.shape[-1], c, *_shape2(kc3t), _cuda.DTYPE_CODES[dt],
+        x3.device.index, _cuda.stream_of(x3),
+    )
+    wpad = pad_head_weights(k12, k3f) if bf else None
     _cuda.launch(
         "cgc_assign_head_pre_lin",
-        x12.data_ptr(), x3.data_ptr(), kc3.data_ptr(), b3.data_ptr(),
-        k12.data_ptr(), k3f.data_ptr(), const.data_ptr(), n_nodes.data_ptr(),
+        x12.data_ptr(), x3.data_ptr(), _ptr(kc3_), b3.data_ptr(),
+        _ptr(kc3t), _ptr(None if bf else k12), _ptr(None if bf else k3f),
+        _ptr(wpad), const.data_ptr(), n_nodes.data_ptr(),
         rnorm.data_ptr(), logits.data_ptr(), s.data_ptr(), b, n, f12,
-        x3.shape[-1], c, _cuda.DTYPE_CODES[dt], x3.device.index,
-        _cuda.stream_of(x3),
+        x3.shape[-1], c, *_shape2(wpad), *_shape2(kc3t),
+        _cuda.DTYPE_CODES[dt], x3.device.index, _cuda.stream_of(x3),
     )
     assign_head_softmax_pre_lin.launches += 1
     return s

@@ -12,7 +12,8 @@ path's A_loc @ [x ++ halo]: x's local column tiles and the halo rows come
 as two arrays, with an optional row accumulator (``acc``, split outputs)
 or a ``scale*(A@x) + self_w*x`` epilogue. The slide path stores its binary
 blocks in int8: B1 writes them and B2 and B8 convert them to x's type where
-they are used.
+they are used. bf16 B8 legs at least 128 wide run on the tensor cores and
+stop each row tile's walk at its last live slot (``live_slot_counts``).
 
 Each device function has a plain PyTorch version of the same signature
 (``*_plain``). The wrapper takes the plain version only for tensors that lie
@@ -524,6 +525,17 @@ def _check_windows(vals, blk_cols, win_base, ns_rows, h_tiles, halo_win,
     check_band_windows(blk_cols, live, win_base, ns_rows, h_tiles, halo_win)
 
 
+def live_slot_counts(blk_mask: torch.Tensor) -> torch.Tensor:
+    """i32[..., R]: for each row tile of a ``blk_mask`` [..., R, M], the
+    number of its block slots up to and including its last live one (0 for
+    a row tile without one) — B8's ``live_slots``: the slots past it hold
+    exact-zero blocks, and the tensor-core kernel stops its walk there."""
+    m = blk_mask.shape[-1]
+    pos = torch.arange(1, m + 1, dtype=torch.int32, device=blk_mask.device)
+    return torch.amax((blk_mask > 0).to(torch.int32) * pos, dim=-1).to(
+        torch.int32)
+
+
 def bsr_matmul_banded_plain(
     vals: torch.Tensor,       # [B, R, M, T, T] (int8 on the slide path)
     blk_cols: torch.Tensor,   # i32[B, R, M]
@@ -537,6 +549,7 @@ def bsr_matmul_banded_plain(
     epilogue_sw=None,         # [1, R*T, 128]: lane 0 scale, lane 1 self_w
     blk_mask=None,            # [B, R, M] live slots for the window check
     check_windows=True,       # False: the caller checked the tables once
+    live_slots=None,          # i32[B, R] (live_slot_counts); not read here
 ):
     """out = A_loc @ [x ++ halo]: column tile c < ns_rows/T reads x, tile c
     >= ns_rows/T reads the halo at c - ns_rows/T (or x's tail rows). int8
@@ -545,7 +558,8 @@ def bsr_matmul_banded_plain(
     (rows < NA, rows >= NA) as two tensors. ``epilogue_sw`` gives
     scale*out + self_w*x_row in f32. The window tables change no value: a
     live block outside its window raises, unless ``check_windows`` is False
-    (tables already held by :func:`check_band_windows`)."""
+    (tables already held by :func:`check_band_windows`). ``live_slots``
+    changes no value (the slots past it hold zero blocks) and is ignored."""
     h_tiles, na = _banded_shapes(vals, blk_cols, win_base, x, ns_rows, halo,
                                  halo_win, acc, epilogue_sw)
     if check_windows:
@@ -585,29 +599,46 @@ def bsr_matmul_banded(
     epilogue_sw=None,
     blk_mask=None,
     check_windows=True,
+    live_slots=None,
 ):
     """B8. Same contract as :func:`bsr_matmul_banded_plain`; launches
     ``csrc/bsr_banded.cu`` for CUDA tensors (one kernel for the TPU's
-    resident-tail and halo-window variants)."""
+    resident-tail and halo-window variants): bf16 x at F >= 128 on the
+    tensor cores, which stop each row tile's walk at ``live_slots`` when
+    given; f32 or narrower legs on the SIMT kernel."""
     h_tiles, na = _banded_shapes(vals, blk_cols, win_base, x, ns_rows, halo,
                                  halo_win, acc, epilogue_sw)
+    b, r, m = blk_cols.shape
+    if live_slots is not None and (tuple(live_slots.shape) != (b, r)
+                                   or live_slots.dtype != torch.int32):
+        raise ValueError(
+            f"bsr_matmul_banded: live_slots {tuple(live_slots.shape)} "
+            f"{live_slots.dtype} must be i32[{b}, {r}]"
+        )
     if x.device.type == "cpu":
         return bsr_matmul_banded_plain(
             vals, blk_cols, win_base, x, ns_rows, halo, halo_win, acc,
-            epilogue_sw, blk_mask, check_windows,
+            epilogue_sw, blk_mask, check_windows, live_slots,
         )
     if x.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"bsr_matmul_banded: unsupported dtype {x.dtype}")
+    if x.dtype == torch.bfloat16 and x.shape[2] >= TILE and x.shape[2] % 2:
+        raise ValueError(
+            f"bsr_matmul_banded: the bf16 tensor-core kernel takes even "
+            f"widths, got F={x.shape[2]}"
+        )
     if check_windows:
         _check_windows(vals, blk_cols, win_base, ns_rows, h_tiles, halo_win,
                        blk_mask)
-    b, r, m = blk_cols.shape
     nx, f = x.shape[1], x.shape[2]
     blk_cols = blk_cols.to(torch.int32).contiguous()
     x = x.contiguous()
     # without a separate halo the kernel reads the halo tiles from x's tail
     halo = halo.contiguous() if halo is not None else None
     tensors = [vals, blk_cols, x] + ([halo] if halo is not None else [])
+    if live_slots is not None:
+        live_slots = live_slots.contiguous()
+        tensors.append(live_slots)
     if acc is not None:
         if acc.dtype != x.dtype:
             raise ValueError(f"bsr_matmul_banded: acc {acc.dtype} != x "
@@ -634,6 +665,7 @@ def bsr_matmul_banded(
         acc.data_ptr() if acc is not None else None,
         epilogue_sw.data_ptr() if epilogue_sw is not None else None,
         out.data_ptr(), tail.data_ptr() if split else None,
+        live_slots.data_ptr() if live_slots is not None else None,
         b, r, m, ns_rows // TILE, nx, halo.shape[1] if halo is not None else 0,
         f, na,
         _cuda.VALS_CODES[vals.dtype], _cuda.DTYPE_CODES[x.dtype],

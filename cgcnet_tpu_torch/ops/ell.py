@@ -183,8 +183,9 @@ class BsrLocalMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vals, blk_cols, win, vals_t, blk_cols_t, win_t, h, halo,
-                win_halo, nbr_t_h, mask_t_h):
-        ctx.save_for_backward(vals_t, blk_cols_t, win_t, nbr_t_h, mask_t_h)
+                win_halo, nbr_t_h, mask_t_h, slots, slots_t):
+        ctx.save_for_backward(vals_t, blk_cols_t, win_t, nbr_t_h, mask_t_h,
+                              slots_t)
         ctx.ns = h.shape[0]
         if _banded_on(win, h):
             hw = (win_halo if win_halo is not None and win_halo.shape[-1]
@@ -192,19 +193,21 @@ class BsrLocalMatmul(torch.autograd.Function):
             return bsr_matmul_banded(
                 vals, blk_cols, win, h[None], ns_rows=h.shape[0],
                 halo=halo[None], halo_win=hw, check_windows=False,
+                live_slots=slots,
             )[0]
         return bsr_matmul(vals, blk_cols, torch.cat([h, halo], dim=0)[None])[0]
 
     @staticmethod
     def backward(ctx, g):
-        vals_t, blk_cols_t, win_t, nbr_t_h, mask_t_h = ctx.saved_tensors
+        vals_t, blk_cols_t, win_t, nbr_t_h, mask_t_h, slots_t = \
+            ctx.saved_tensors
         ns = ctx.ns
         g = g.contiguous()
         if _banded_on(win_t, g):
             # the transpose's x is the forward's row space: no halo tiles
             d_xx = bsr_matmul_banded(
                 vals_t, blk_cols_t, win_t, g[None], ns_rows=ns,
-                check_windows=False,
+                check_windows=False, live_slots=slots_t,
             )[0]
         else:
             d_xx = bsr_matmul(vals_t, blk_cols_t, g[None])[0]
@@ -215,7 +218,7 @@ class BsrLocalMatmul(torch.autograd.Function):
             )[0]
         else:
             d_halo = d_xx[ns:]
-        return (None,) * 6 + (d_xx[:ns], d_halo) + (None,) * 3
+        return (None,) * 6 + (d_xx[:ns], d_halo) + (None,) * 5
 
 
 def bsr_local_matmul(
@@ -231,10 +234,13 @@ def bsr_local_matmul(
     nbr_t_h=None,              # i32[H, KT] in-edge lists of the halo rows
                                #   (hybrid transpose)
     mask_t_h=None,             # f32[H, KT]
+    slots=None,                # i32[1, R] live slot counts of blk_cols
+    slots_t=None,              # i32[1, RC] of blk_cols_t (B8's live_slots)
 ) -> torch.Tensor:
     """[Ns, F] = A_loc @ [h ++ halo] (:class:`BsrLocalMatmul`)."""
     return BsrLocalMatmul.apply(vals, blk_cols, win, vals_t, blk_cols_t,
-                                win_t, h, halo, win_halo, nbr_t_h, mask_t_h)
+                                win_t, h, halo, win_halo, nbr_t_h, mask_t_h,
+                                slots, slots_t)
 
 
 def renorm_ell(

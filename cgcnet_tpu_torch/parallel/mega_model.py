@@ -49,6 +49,7 @@ from cgcnet_tpu_torch.ops.bsr import (
     bsr_build_blocks,
     bsr_matmul_banded,
     check_band_windows,
+    live_slot_counts,
 )
 from cgcnet_tpu_torch.ops.ell import (
     EPS,
@@ -91,6 +92,8 @@ class MegaInputs:
     win_halo: Optional[torch.Tensor] = None    # i32[1, S, 2]
     vals: Optional[torch.Tensor] = None        # i8[1, R, M, T, T]
     vals_t: Optional[torch.Tensor] = None      # i8[1, RC, MT, T, T]
+    slots: Optional[torch.Tensor] = None       # i32[R] live slot counts
+    slots_t: Optional[torch.Tensor] = None     # i32[RC]
 
     @property
     def device(self) -> torch.device:
@@ -163,7 +166,8 @@ def build_vals(inp: MegaInputs) -> None:
     """The int8 blocks of the binary local operator (self slots excluded:
     the self weight applies outside the block product) and of its
     transpose, over the rows its blocks cover; then the window contract of
-    the tables (:func:`check_windows`)."""
+    the tables (:func:`check_windows`) and each row tile's live slot count
+    (B8's ``live_slots``)."""
     row = torch.arange(inp.nbr_remap.shape[0], device=inp.device)
     off = inp.nbr_mask * (inp.nbr_remap != row[:, None]).to(inp.nbr_mask.dtype)
     inp.vals = bsr_build_blocks(
@@ -176,6 +180,8 @@ def build_vals(inp: MegaInputs) -> None:
         inp.blk_mask_t[None], torch.int8,
     )
     check_windows(inp)
+    inp.slots = live_slot_counts(inp.blk_mask)
+    inp.slots_t = live_slot_counts(inp.blk_mask_t)
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +234,12 @@ class PoolAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tabs, scale, self_w, pool_ratio, s, pembed):
         (vals, blk_cols, win, vals_t, blk_cols_t, win_t, win_halo, nbr_t_h,
-         mask_t_h, req_idx, req_mask, nc) = tabs
+         mask_t_h, slots, slots_t, req_idx, req_mask, nc) = tabs
         ns = s.shape[0]
         halo = _pad_halo(halo_exchange(s, req_idx, req_mask), nc, ns)
         agg = bsr_local_matmul(vals, blk_cols, win, vals_t, blk_cols_t,
-                               win_t, s, halo, win_halo, nbr_t_h, mask_t_h)
+                               win_t, s, halo, win_halo, nbr_t_h, mask_t_h,
+                               slots, slots_t)
         a_s = scale[:, None] * agg + self_w[:, None] * s
         ctx.tabs = tabs
         ctx.save_for_backward(scale, pool_ratio, s, pembed, a_s)
@@ -240,8 +247,8 @@ class PoolAggregate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_x, ct_adj):
-        (_, _, _, vals_t, blk_cols_t, win_t, _, nbr_t_h, mask_t_h, req_idx,
-         req_mask, _) = ctx.tabs
+        (_, _, _, vals_t, blk_cols_t, win_t, _, nbr_t_h, mask_t_h, _, slots_t,
+         req_idx, req_mask, _) = ctx.tabs
         scale, pool_ratio, s, pembed, a_s = ctx.saved_tensors
         dt = s.dtype
         ctx_, cta = ct_x.to(dt), ct_adj.to(dt)
@@ -253,7 +260,7 @@ class PoolAggregate(torch.autograd.Function):
         acc = pembed @ ctx_.t() + a_s @ cta.t() + pool_ratio[:, None] * g
         res = bsr_matmul_banded(vals_t, blk_cols_t, win_t, g[None],
                                 ns_rows=g.shape[0], acc=acc[None],
-                                check_windows=False)
+                                check_windows=False, live_slots=slots_t)
         if isinstance(res, tuple):
             ds, d_halo = res[0][0], res[1][0]
         else:
@@ -545,7 +552,8 @@ class ShardedAdj:
         else:
             nbr_t_h = mask_t_h = None
         return (inp.vals, inp.blk_cols[None], win, inp.vals_t,
-                inp.blk_cols_t[None], win_t, win_halo, nbr_t_h, mask_t_h)
+                inp.blk_cols_t[None], win_t, win_halo, nbr_t_h, mask_t_h,
+                inp.slots[None], inp.slots_t[None])
 
     def __call__(self, h):
         inp = self.inp

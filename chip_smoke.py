@@ -6,7 +6,9 @@
 Phases, each fatal on failure (exit code != 0):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build of the hand-written kernels from ``cgcnet_tpu_torch/csrc`` (nvcc);
+2. build of the hand-written kernels from ``cgcnet_tpu_torch/csrc`` (nvcc),
+   with the compiler's registers and spills of every instantiation of the
+   bf16 tensor-core kernels (``banded_tc_kernel``, ``gemm_tc_kernel``);
 3. kernels: B1 (block build, for A and for the binary transpose blocks),
    B2 (block-sparse matmul, at every width one training step gives it, on
    the forward and on the transpose blocks), B3 (BN statistics of the assign
@@ -62,7 +64,12 @@ Phases, each fatal on failure (exit code != 0):
    training's lane-padded ``c_out``), B5 (the training call and each
    capacity chunk) and the int8 B1/B2 legs against their plain versions on
    the card, in f32 and bf16, on inputs captured from phases 8-10, timed as
-   in phase 3.
+   in phase 3. B4, B6 and B9a also carry ``product_library_ms``, their
+   product [rows x (F12+C)] @ [(F12+C) x C] alone as one cuBLAS call (a
+   yardstick), and one B4 and one B9a call at the slide's shapes the device
+   time of each of the head's launches (``split_ms``: row norm, product,
+   softmax, and the padded weight copies as ``other``) from a
+   torch.profiler trace.
 
 The second-to-last lines are one JSON object of per-kernel numbers and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -305,12 +312,14 @@ def capture_inputs(model, graph) -> dict:
 
 def record_kernel(results, name, key, dt, out, ref, kernel_fn, plain_fn,
                   bytes_, ops, library=None, source="", replaces="",
-                  ops_dt=None, paths=None, reps=15, plain_reps=15) -> None:
+                  ops_dt=None, paths=None, reps=15, plain_reps=15,
+                  extra=None) -> None:
     """Hold a kernel's output (a tensor or a tuple) against its plain
     version's at TOL, time kernel, plain version and library call (CUDA
     events), and append the kernel-line entry to ``results``; ``paths``
     names the main paths whose launches it counts (default the patch
-    paths; () for a variant that no path of this run takes)."""
+    paths; () for a variant that no path of this run takes); ``extra``
+    adds fields to the entry (the head's yardstick and split)."""
     import torch
 
     torch.cuda.synchronize()
@@ -340,14 +349,64 @@ def record_kernel(results, name, key, dt, out, ref, kernel_fn, plain_fn,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms, "key": key,
         "paths": PATCH_PATHS if paths is None else paths,
+        **(extra or {}),
     }
     log(f"  {name}: max_abs_err {err:.3e} (max|ref| {scale:.3e}, tol "
         f"{tol:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})"
+        + "".join(f"; {k} {v}" for k, v in (extra or {}).items()))
     if not ok:
         raise SystemExit(f"kernel {name} disagrees with its plain version")
     results.append(entry)
+
+
+def product_library_ms(rows: int, k: int, c: int, dt, device) -> float:
+    """The head's product alone as one cuBLAS call, [rows x k] @ [k x c] in
+    ``dt`` (f32 without TF32), on random operands of those shapes: a
+    yardstick for B4 / B6 / B9a; the port never calls it."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    a = torch.randn((rows, k), generator=gen, device=device).to(dt)
+    w = torch.randn((k, c), generator=gen, device=device).to(dt)
+    ms = time_ms(lambda: a @ w, reps=10)
+    del a, w
+    return ms
+
+
+# the head's launches by kernel name: row norm (B4, B9a), product, softmax
+HEAD_PARTS = {"row_norm": ("rnorm_kernel", "rnorm_lin_tc_kernel"),
+              "product": ("gemm_tc_kernel", "gemm_kernel"),
+              "softmax": ("softmax_kernel", "softmax_rows_kernel")}
+
+
+def head_split(fn, calls: int = 3) -> dict:
+    """Device ms per call of each of the head's launches (HEAD_PARTS) and
+    of the wrapper's other kernels (``other``: the padded weight copies),
+    from the kernel events of a torch.profiler trace of ``calls`` calls;
+    "not measured" where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {part: 0.0 for part in (*HEAD_PARTS, "other")}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        part = next((p for p, names in HEAD_PARTS.items()
+                     if any(n in e.name for n in names)), "other")
+        us[part] += e.time_range.elapsed_us()
+    if not any(us.values()):
+        return {part: "not measured" for part in us}
+    return {part: v / calls / 1e3 for part, v in us.items()}
 
 
 def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
@@ -447,6 +506,8 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
             ops=2 * rows_real * (f12 + c) * c,
             source="cgcnet_tpu_torch/csrc/assign_head.cu",
             replaces="cgcnet_tpu/ops/pallas/assign_head.py:286",
+            extra={"product_library_ms": product_library_ms(
+                b * n, f12 + c, c, dt, p.device)},
         )
         # ---- B5 ----
         p, dh, u, w, n_nodes = seen["B5"][0]
@@ -486,6 +547,8 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
             ops=2 * rows_real * (f12 + c) * c,
             source="cgcnet_tpu_torch/csrc/assign_head.cu",
             replaces="cgcnet_tpu/ops/pallas/assign_head.py:85",
+            extra={"product_library_ms": product_library_ms(
+                b * n, f12 + c, c, dt, h3a.device)},
         )
         # ---- B7, on the batch's binary off-diagonal ELL (the operator of
         # bsr_spmm_factored) and its transpose tables, at the B2 widths ----
@@ -1374,13 +1437,19 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
     log(f"  halo windows: shard 0 of {shards}, {ns} rows, halo "
         f"{tab.nc - ns} rows, M {tab.blk_cols.shape[-1]}")
     b8_cases = [(n, a, k) for n, (a, k) in zip(names, b8_calls)]
+    # the window contract held once for these tables, as the slide path
+    # holds it once per slide (mega_model.check_windows); the launches then
+    # skip the per-call check, as the path's do
+    win0 = torch.as_tensor(tab.win_base[0:1], device=device)
+    hwin0 = torch.as_tensor(tab.win_halo[0:1], device=device)
+    bsr.check_band_windows(bc0[None], bm0[None] > 0, win0, ns,
+                           (tab.nc - ns) // t, hwin0)
     b8_cases.append((
         f"A@S halo windows (shard 0 of {shards}) F={f_s}",
-        [vals0, bc0[None], torch.as_tensor(tab.win_base[0:1], device=device),
-         x_h],
-        {"ns_rows": ns, "halo": halo_h,
-         "halo_win": torch.as_tensor(tab.win_halo[0:1], device=device),
-         "blk_mask": bm0[None]},
+        [vals0, bc0[None], win0, x_h],
+        {"ns_rows": ns, "halo": halo_h, "halo_win": hwin0,
+         "check_windows": False,
+         "live_slots": bsr.live_slot_counts(bm0[None])},
     ))
     # the epilogue option, on the training A@S leg's inputs
     base_args, base_kw = next((a, k) for n, (a, k) in zip(names, b8_calls)
@@ -1452,7 +1521,7 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
                 source="cgcnet_tpu_torch/csrc/assign_tail.cu",
                 replaces="cgcnet_tpu/ops/pallas/assign_head.py:180",
             )
-        for args, _ in calls("B4"):
+        for i4, (args, _) in enumerate(calls("B4")):
             x12, p, k12, k3f, const, nn4 = args[:6]
             c_out = args[6] if len(args) > 6 else None
             h4 = (x12.to(dt), p.to(dt), k12, k3f, const, nn4, c_out)
@@ -1464,6 +1533,11 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
             if out.shape[-1] != co or out[..., c:].any():
                 raise SystemExit(f"B4 c_out={c_out}: pad columns are not "
                                  "exact zeros")
+            extra = {"product_library_ms": product_library_ms(
+                b * n, f12 + c, c, dt, device)}
+            if i4 == 0:  # the split of one call (the first: serving)
+                extra["split_ms"] = head_split(
+                    lambda h4=h4: ah.assign_head_softmax_pre(*h4))
             record(
                 f"B4 assign_head_softmax_pre slide {tag} N={n} F12={f12} "
                 f"C={c} c_out={co}", "B4", dt_name, out,
@@ -1475,6 +1549,7 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
                 ops=2 * rr * (f12 + c) * c,
                 source="cgcnet_tpu_torch/csrc/assign_head.cu",
                 replaces="cgcnet_tpu/ops/pallas/assign_head.py:286",
+                extra=extra,
             )
         for (p, dh, u, w, nn5), _ in calls("B5"):
             a5 = (p.to(dt), dh.to(dt), u, w, nn5)
@@ -1512,6 +1587,10 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
             ops=2 * rows_real * c * (f3 + f12 + c),
             source="cgcnet_tpu_torch/csrc/assign_head.cu",
             replaces="cgcnet_tpu/ops/pallas/assign_head.py:882",
+            extra={"product_library_ms": product_library_ms(
+                n, f12 + c, c, dt, device),
+                "split_ms": head_split(
+                    lambda: ah.assign_head_softmax_pre_lin(*a9))},
         )
         (x3b, kc3b, b3b, nnb), _ = calls("B9b")[0]
         a9b = (x3b.to(dt), kc3b, b3b, nnb)
@@ -1673,6 +1752,37 @@ def slice_phase(tmp: Path, device) -> dict:
             "gin_train_cli_wall_s": gin_train["cli_wall_s"]}
 
 
+# the tensor-core kernels whose compiler report phase 2 must hold
+TC_KERNELS = ("banded_tc_kernel", "gemm_tc_kernel")
+
+
+def tc_report(build_log: str) -> None:
+    """Registers and spills of every instantiation of TC_KERNELS from the
+    compiler's ``-Xptxas -v`` report; fails when one has no entry."""
+    lines = build_log.splitlines()
+    for name in TC_KERNELS:
+        found = []
+        for i, line in enumerate(lines):
+            if "Compiling entry" not in line or name not in line:
+                continue
+            spill = regs = "?"
+            for nxt in lines[i + 1:i + 5]:
+                if "spill" in nxt:  # "... N bytes spill stores, M bytes ..."
+                    w = nxt.replace(",", " ").split()
+                    spill = "/".join(w[j - 2] for j, t in enumerate(w)
+                                     if t == "spill")
+                if "Used" in nxt and "registers" in nxt:
+                    regs = nxt.split("Used")[1].split("registers")[0].strip()
+            found.append(f"{regs} regs, spill bytes {spill}")
+        if not found:
+            raise SystemExit(f"phase 2: no compiler report for {name}")
+        log(f"  {name}: {len(found)} instantiations: " + "; ".join(found))
+    # ptxas's note when it has to wait for each product before the next
+    serial = [ln for ln in lines if "C7515" in ln]
+    log(f"  products serialized by the compiler: {len(serial)} functions"
+        + "".join(f"\n    {ln.strip()[:200]}" for ln in serial[:4]))
+
+
 def main() -> int:
     try:
         import torch
@@ -1705,9 +1815,11 @@ def main() -> int:
     lib_path = _cuda.build()
     _cuda.library()
     log(f"  built {lib_path.name} in {time.time() - t0:.1f} s")
-    for line in (_cuda.BUILD_DIR / "build.log").read_text().splitlines():
+    build_log = (_cuda.BUILD_DIR / "build.log").read_text()
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
+    tc_report(build_log)
 
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:

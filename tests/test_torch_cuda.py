@@ -373,3 +373,176 @@ def test_slide_kernels_match_plain(device, dtype):
                                       c_out=1152)
     _close_to(s, ah.assign_head_softmax_pre_plain(*hargs, 1152)[0], tol9)
     assert not s[..., cc:].any()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels (B8; B4, B6 and B9a's product) at their edges
+# ---------------------------------------------------------------------------
+
+def _kernel_names(fn) -> list[str]:
+    """Names of the CUDA kernels ``fn`` launches (torch.profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
+@pytest.mark.parametrize("f", [1140, 1152])
+def test_banded_tensor_cores_match_plain(device, f):
+    """bf16 B8 at the slide's widths (16-byte copies at 1152, 8-byte at
+    1140, a ragged last column chunk at 1140) against its plain version:
+    dead slots after each row tile's live ones and one before a live slot,
+    the live slot count given and not given, the row accumulator with split
+    outputs (F a multiple of 128 only), the epilogue, halo windows."""
+    tol = 2.0 ** -6
+    gen = torch.Generator().manual_seed(f)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    cols, mask, vals = _banded(5)
+    mask[0, 3, 0], vals[0, 3, 0] = 0.0, 0  # a hole before live slots
+    win = torch.from_numpy(bsr.band_window_table(cols[0], mask[0], 16))[None]
+    c, m, v = (torch.from_numpy(a) for a in (cols, mask, vals))
+    slots = bsr.live_slot_counts(m)
+    assert slots[0, 3] == 3 and int(slots.max()) < m.shape[-1]
+    x, halo = rnd(1, 2048, f).bfloat16(), rnd(1, 128, f).bfloat16()
+    sw = torch.zeros(1, 2048, 128)
+    sw[0, :, 0], sw[0, :, 1] = rnd(2048), 0.4
+    cases = [((v, c, win, x, 2048), {"halo": halo}),
+             ((v, c, win, x, 2048),
+              {"halo": halo, "epilogue_sw": sw.bfloat16()})]
+    if f % 128 == 0:
+        cases.append(((v, c, win, torch.cat([x, halo], 1), 2048),
+                      {"acc": rnd(1, 3 * 512, f).bfloat16()}))
+    cols_h, mask_h, vals_h = _banded(6, h_total=12)
+    tabs = bsr.band_window_table_halo(cols_h[0], mask_h[0], 16, 12)
+    cases.append(((torch.from_numpy(vals_h), torch.from_numpy(cols_h),
+                   torch.from_numpy(tabs[0])[None], x, 2048),
+                  {"halo": rnd(1, 12 * 128, f).bfloat16(),
+                   "halo_win": torch.from_numpy(tabs[1])[None],
+                   "blk_mask": torch.from_numpy(mask_h)}))
+    for args, kw in cases:
+        ref = bsr.bsr_matmul_banded_plain(*args, **kw)
+        dev_args = [a.to(device) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        dev_kw = {k: t.to(device) for k, t in kw.items()}
+        counts = [None, bsr.live_slot_counts(
+            kw.get("blk_mask", m).to(device))]
+        for live in counts:
+            launches = bsr.bsr_matmul_banded.launches
+            out = bsr.bsr_matmul_banded(*dev_args, **dev_kw, live_slots=live)
+            assert bsr.bsr_matmul_banded.launches == launches + 1
+            _close_to(out, ref, tol)
+    names = _kernel_names(lambda: bsr.bsr_matmul_banded(
+        *dev_args, **dev_kw, live_slots=counts[1]))
+    assert any("banded_tc_kernel" in n for n in names), names
+
+
+def test_banded_narrow_bf16_takes_simt(device):
+    """A bf16 B8 leg narrower than 128 columns (F=64) stays on the SIMT
+    kernel and agrees with its plain version."""
+    gen = torch.Generator().manual_seed(7)
+    cols, mask, vals = _banded(7)
+    win = torch.from_numpy(bsr.band_window_table(cols[0], mask[0], 16))[None]
+    c, v = torch.from_numpy(cols), torch.from_numpy(vals)
+    x = torch.randn(1, 2048, 64, generator=gen).bfloat16()
+    halo = torch.randn(1, 128, 64, generator=gen).bfloat16()
+    ref = bsr.bsr_matmul_banded_plain(v, c, win, x, 2048, halo=halo)
+    args = [a.to(device) for a in (v, c, win, x)]
+    run = lambda: bsr.bsr_matmul_banded(*args, 2048, halo=halo.to(device))
+    _close_to(run(), ref, 2.0 ** -6)
+    names = _kernel_names(run)
+    assert any("banded_kernel" in n for n in names), names
+    assert not any("banded_tc_kernel" in n for n in names), names
+
+
+def test_heads_tensor_cores_match_plain(device):
+    """bf16 B4 (with and without ``c_out``=1152), B6 and B9a on the tensor
+    cores at C=1140 against their plain versions, with n_nodes ending
+    mid-tile in both graphs: rows past n_nodes and pad columns exactly 0."""
+    tol = 2.0 ** -6
+    gen = torch.Generator().manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    b, n, f12, f3, cc = 2, 512, 40, 20, 1140
+    x12, x3 = rnd(b, n, f12).bfloat16(), rnd(b, n, f3).bfloat16()
+    kc3, b3 = rnd(f3, cc) * 0.3, rnd(cc) * 0.1
+    k12, k3f, const = rnd(f12, cc) * 0.2, rnd(cc, cc) * 0.05, rnd(cc) * 0.1
+    nn_ = torch.tensor([450, 300], dtype=torch.int32)
+    rows = torch.arange(n)[None, :] < nn_.long()[:, None]
+    p = ah.lin_p(x3, kc3, b3)
+    p[0, 7] = 0  # an all-zero row: rnorm clamps
+    to = lambda *a: [t.to(device) for t in a]
+    heads = [
+        ("B4", ah.assign_head_softmax_pre, (x12, p, k12, k3f, const, nn_),
+         lambda *a: ah.assign_head_softmax_pre_plain(*a)[0], {}),
+        ("B4 c_out", ah.assign_head_softmax_pre,
+         (x12, p, k12, k3f, const, nn_),
+         lambda *a: ah.assign_head_softmax_pre_plain(*a, 1152)[0],
+         {"c_out": 1152}),
+        ("B6", ah.assign_head_softmax, (x12, p, k12, k3f, const, nn_),
+         ah.assign_head_softmax_plain, {}),
+        ("B9a", ah.assign_head_softmax_pre_lin,
+         (x12, x3, kc3, b3, k12, k3f, const, nn_),
+         ah.assign_head_softmax_pre_lin_plain, {}),
+    ]
+    for name, fn, args, plain, kw in heads:
+        launches = fn.launches
+        out = fn(*to(*args), **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        assert fn.launches == launches + 1, name
+        assert out.dtype == torch.bfloat16, name
+        _close_to(out, plain(*args), tol)
+        assert not out[~rows.to(device)].any(), name
+        assert not out[..., cc:].any(), name
+        names = _kernel_names(lambda: fn(*to(*args), **kw))
+        assert any("gemm_tc_kernel" in k for k in names), (name, names)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heads_wide_rows_match_plain(device, dtype):
+    """B4 with rows wider than the register softmax takes (C > 1536): the
+    softmax's pass-per-statistic kernel, against the plain version."""
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    gen = torch.Generator().manual_seed(14)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    b, n, f12, cc = 1, 256, 40, 1600
+    args = (rnd(b, n, f12).to(dtype), rnd(b, n, cc).to(dtype),
+            rnd(f12, cc) * 0.2, rnd(cc, cc) * 0.05, rnd(cc) * 0.1,
+            torch.tensor([200], dtype=torch.int32))
+    out, _ = ah.assign_head_softmax_pre(*[t.to(device) for t in args])
+    _close_to(out, ah.assign_head_softmax_pre_plain(*args)[0], tol)
+    names = _kernel_names(lambda: ah.assign_head_softmax_pre(
+        *[t.to(device) for t in args]))
+    assert any("softmax_kernel" in k for k in names), names
+
+
+def test_heads_refuse_other_padding(device, monkeypatch):
+    """The bf16 head entries check the shapes of the padded copies they are
+    given against their own tiling: a weight copy or a kc3^T copy padded
+    otherwise is refused with a CUDA error, not read at the wrong rows."""
+    gen = torch.Generator().manual_seed(12)
+    rnd = lambda *s: torch.randn(s, generator=gen).to(device)
+    b, n, f12, f3, cc = 1, 256, 40, 20, 200
+    x12, x3 = rnd(b, n, f12).bfloat16(), rnd(b, n, f3).bfloat16()
+    kc3, b3 = rnd(f3, cc), rnd(cc)
+    k12, k3f, const = rnd(f12, cc), rnd(cc, cc), rnd(cc)
+    nn_ = torch.tensor([200], dtype=torch.int32, device=device)
+    p = ah.lin_p(x3, kc3, b3)
+    grow = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 64))
+    for name, pad in (("pad_head_weights", ah.pad_head_weights),
+                      ("pad_lin_kernel", ah.pad_lin_kernel)):
+        with monkeypatch.context() as m:
+            m.setattr(ah, name, lambda *a, pad=pad: grow(pad(*a)))
+            calls = [lambda: ah.assign_head_softmax_pre_lin(
+                x12, x3, kc3, b3, k12, k3f, const, nn_)]
+            if name == "pad_head_weights":
+                calls += [
+                    lambda: ah.assign_head_softmax_pre(x12, p, k12, k3f,
+                                                       const, nn_),
+                    lambda: ah.assign_head_softmax(x12, p, k12, k3f, const,
+                                                   nn_)]
+            for call in calls:
+                with pytest.raises(RuntimeError, match="CUDA error"):
+                    call()
+                    torch.cuda.synchronize()
