@@ -35,8 +35,9 @@
 //      computes p twice (here and in the product): 2*N*C*F3 more operations
 //      (~5 GFLOP at 100k nuclei, F3 = 20). rnorm_kernel: one warp per row
 //      (B4; B9a in f32, p from x3 staged in shared memory and kc3);
-//      rnorm_lin_tc_kernel (B9a in bf16): p by mma.sync with the product's
-//      fragments, order and rounding, so norm and product read the same p;
+//      rnorm_lin_tc_kernel (B9a in bf16): p by mma.sync through
+//      tc.cuh's lin_p_mma, the routine of the product too, so norm and
+//      product read the same p;
 //   2. the product, logits + const -> an f32 buffer; tiles wholly past
 //      n_nodes are skipped.
 //      bf16: gemm_tc_kernel on the tensor cores. A 128 x 192 output tile per
@@ -263,8 +264,8 @@ constexpr uint32_t kWStage = 3 * kWAtom;        // [64 x 192] of the weights
 constexpr int kAStride = kHK * 2 + 16;          // A row: 144 bytes, so the
 constexpr uint32_t kAStage = kBM * kAStride;    //   fragment reads of 8 rows
                                                 //   hit 8 bank groups
-constexpr int kF3Pad = 32;                      // B9a: x3 width, 2 k-steps
-constexpr int kLStride = kF3Pad * 2 + 16;       // kc3^T row: 80 bytes
+using cgc::tc::kF3Pad;                          // B9a: x3 width, 2 k-steps
+using cgc::tc::kLStride;                        // kc3^T row: 80 bytes
 constexpr uint32_t kLStage = kHK * kLStride;    // [64 x 32] slice of kc3^T
 // a multiple of 1024, so the atoms of every stage stay aligned
 template <bool LIN>
@@ -412,22 +413,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_tc_kernel(
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int jn = 2 * ks + half;
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-          const bf16* brow = ls + (8 * jn + g) * (kLStride / 2) + 2 * tq;
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk)
-            mma_m16n8k16(
-                c, xf[kk], *reinterpret_cast<const uint32_t*>(brow + 16 * kk),
-                *reinterpret_cast<const uint32_t*>(brow + 16 * kk + 8));
           const int col = k0 - K12p + 8 * jn + 2 * tq;
-          const float bb0 = s_b3[col], bb1 = s_b3[col + 1];
-          float hv[4];
+          float pv[4], hv[4];
+          lin_p_mma(pv, xf,
+                    ls + (8 * jn + g) * (kLStride / 2) + 2 * tq,
+                    s_b3[col], s_b3[col + 1]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pv = cgc::round_to<bf16>(cgc::round_to<bf16>(c[i]) +
-                                                 (i % 2 ? bb1 : bb0));
-            hv[i] = fmaxf(pv, 0.f) * (i < 2 ? rn0 : rn1);
-          }
+          for (int i = 0; i < 4; ++i)
+            hv[i] = fmaxf(pv[i], 0.f) * (i < 2 ? rn0 : rn1);
           af[ks][half * 2] = pack_bf16(hv[0], hv[1]);
           af[ks][half * 2 + 1] = pack_bf16(hv[2], hv[3]);
         }
@@ -476,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_tc_kernel(
 }
 
 // B9a's row norm on the tensor cores: p for a tile of 128 rows x all of C
-// by mma.sync, with the fragments, order and rounding of gemm_tc_kernel, so
+// by mma.sync through lin_p_mma (tc.cuh), as gemm_tc_kernel forms it, so
 // the norm and the product read the same p; f32 sum of squares per row.
 // kc3t ([round_up(C, 64), 32], kc3^T padded) is staged in shared memory.
 __global__ void __launch_bounds__(kThreads) rnorm_lin_tc_kernel(
@@ -499,41 +492,22 @@ __global__ void __launch_bounds__(kThreads) rnorm_lin_tc_kernel(
   cp_async_commit();
   const int lane = t % 32, g = lane / 4, tq = lane % 4;
   const long long ra = row0 + (t / 32) * 16 + g;  // rows ra, ra + 8
-  const bf16 zero = __float2bfloat16(0.f);
   uint32_t xf[2][4];
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long row = ra + (i % 2) * 8;
-      const int k = 16 * kk + 2 * tq + (i / 2) * 8;
-      __nv_bfloat162 v;
-      v.x = k < F3 ? x3[row * F3 + k] : zero;
-      v.y = k + 1 < F3 ? x3[row * F3 + k + 1] : zero;
-      xf[kk][i] = *reinterpret_cast<const uint32_t*>(&v);
-    }
-  }
+  lin_x3_frags(xf, x3, ra, F3, tq);
   cp_async_wait<0>();
   __syncthreads();
   float ss0 = 0.f, ss1 = 0.f;
   for (int jn = 0; jn < Kc / 8; ++jn) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* brow = s_k + (8 * jn + g) * (kLStride / 2) + 2 * tq;
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      mma_m16n8k16(c, xf[kk],
-                   *reinterpret_cast<const uint32_t*>(brow + 16 * kk),
-                   *reinterpret_cast<const uint32_t*>(brow + 16 * kk + 8));
     const int col = 8 * jn + 2 * tq;
+    float p[4];
+    lin_p_mma(p, xf, s_k + (8 * jn + g) * (kLStride / 2) + 2 * tq,
+              col < C ? cgc::to_f32(b3[col]) : 0.f,
+              col + 1 < C ? cgc::to_f32(b3[col + 1]) : 0.f);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (col + e >= C) continue;
-      const float bb = cgc::to_f32(b3[col + e]);
-      const float p0 = cgc::round_to<bf16>(cgc::round_to<bf16>(c[e]) + bb);
-      const float p1 =
-          cgc::round_to<bf16>(cgc::round_to<bf16>(c[2 + e]) + bb);
-      ss0 = fmaf(p0, p0, ss0);
-      ss1 = fmaf(p1, p1, ss1);
+      ss0 = fmaf(p[e], p[e], ss0);
+      ss1 = fmaf(p[2 + e], p[2 + e], ss1);
     }
   }
   // the four lanes of a row hold its column quarters
@@ -545,6 +519,36 @@ __global__ void __launch_bounds__(kThreads) rnorm_lin_tc_kernel(
   if (tq == 0) {
     rnorm[ra] = 1.f / fmaxf(sqrtf(ss0), 1e-12f);
     rnorm[ra + 8] = 1.f / fmaxf(sqrtf(ss1), 1e-12f);
+  }
+}
+
+// Test-only (tests/test_torch_cuda.py): p [rows, C] in bf16 as lin_p_mma
+// forms it for B9a, one warp per 16 rows, kc3t read from device memory.
+// No path of the package calls it.
+__global__ void __launch_bounds__(kThreads)
+    lin_p_probe_kernel(const bf16* __restrict__ x3,
+                       const bf16* __restrict__ kc3t,
+                       const bf16* __restrict__ b3, bf16* __restrict__ p,
+                       int F3, int C) {
+  using namespace cgc::tc;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const long long ra =
+      (static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+       threadIdx.x / 32) * 16 + g;
+  uint32_t xf[2][4];
+  lin_x3_frags(xf, x3, ra, F3, tq);
+  for (int jn = 0; jn < round_up(C, kHK) / 8; ++jn) {
+    const int col = 8 * jn + 2 * tq;
+    float v[4];
+    lin_p_mma(v, xf, kc3t + static_cast<long long>(8 * jn + g) * kF3Pad +
+                         2 * tq,
+              col < C ? cgc::to_f32(b3[col]) : 0.f,
+              col + 1 < C ? cgc::to_f32(b3[col + 1]) : 0.f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int cc = col + i % 2;
+      if (cc < C) p[(ra + 8 * (i / 2)) * C + cc] = __float2bfloat16(v[i]);
+    }
   }
 }
 
@@ -867,6 +871,31 @@ extern "C" int cgc_assign_head(const void* x12, const void* h3a,
                    static_cast<float*>(rnorm), static_cast<float*>(logits), s,
                    B, N, F12, 0, C, c_out, w_rows, w_cols, 0, 0};
   return dispatch<false, false>(a, dtype, device, stream);
+}
+
+// Test-only: p [rows, C] bf16 from x3 [rows, F3], kc3t ([kt_rows, kt_cols]
+// = [round_up(C, 64), 32], pad_lin_kernel) and b3 through lin_p_mma, the
+// routine B9a forms p with; rows a multiple of 128. The package never calls
+// it.
+extern "C" int cgc_lin_p_probe(const void* x3, const void* kc3t,
+                               const void* b3, void* p, int rows, int F3,
+                               int C, int kt_rows, int kt_cols, int device,
+                               void* stream) {
+  HeadArgs a{};
+  a.kc3t = kc3t;
+  a.F3 = F3;
+  a.C = C;
+  a.kt_rows = kt_rows;
+  a.kt_cols = kt_cols;
+  if (rows % kBM || F3 <= 0 || !kc3t_ok(a)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (rows > 0 && C > 0)
+    lin_p_probe_kernel<<<rows / kBM, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(x3), static_cast<const bf16*>(kc3t),
+        static_cast<const bf16*>(b3), static_cast<bf16*>(p), F3, C);
+  return cudaGetLastError();
 }
 
 // B9a: x12, x3 [B*N, F3], b3 [C]; kc3 [F3, C], K12, K3f (f32; null in

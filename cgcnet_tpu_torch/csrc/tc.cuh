@@ -2,7 +2,9 @@
 // B9a's product): asynchronous copies into shared memory, the warpgroup
 // product wgmma m64n192k16 with A in registers and B in 128-byte-swizzled
 // shared memory, its shared-memory descriptor, and the warp-level
-// mma.sync m16n8k16 (B9a's 20-deep product forming p).
+// mma.sync m16n8k16 (B9a's 20-deep product forming p, B2's block
+// products), and the one routine that forms conv3's lin output p on the
+// tensor cores for both of B9a's kernels (``lin_p_mma``).
 //
 // Fragment layouts (g = lane / 4, t = lane % 4; warp w of a warpgroup owns
 // rows 16w .. 16w + 15 of the warpgroup's 64):
@@ -167,6 +169,81 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   __nv_bfloat162 b;
   *reinterpret_cast<uint32_t*>(&b) = v;
   return __bfloat1622float2(b);
+}
+
+// ldmatrix .trans of two (x2) or four (x4) 8 x 8 b16 matrices whose rows
+// lanes 0-7, 8-15 (, 16-23, 24-31) address: B operands of mma.sync
+// m16n8k16 (pairs along k) from a row-major [k][n] tile in shared memory.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// ---- conv3's lin output p on the tensor cores (B9a) ----
+//
+// p = round_bf16(round_bf16(x3 . kc3[:, c]) + b3[c]): the x3 rows, padded to
+// kF3Pad columns with zeros, are the A operand (two k-steps of 16), kc3^T
+// ([round_up(C, 64), kF3Pad], zero-padded: ops/assign_head.py
+// pad_lin_kernel) the B operand; the f32 accumulator of each 16 x 8 tile is
+// rounded, the bias added and rounded again. B9a's row norm and its
+// product form p through these two routines, so both see the same p, bit
+// for bit.
+constexpr int kF3Pad = 32;               // x3 width: two k-steps
+constexpr int kLStride = kF3Pad * 2 + 16;  // a kc3^T row staged in shared
+                                           //   memory: 80 bytes
+
+// The x3 rows ``ra`` and ``ra + 8`` (flat rows of an [rows, F3] array) as
+// the A fragments of both k-steps; columns past F3 are zeros.
+__device__ __forceinline__ void lin_x3_frags(uint32_t (&xf)[2][4],
+                                             const __nv_bfloat16* x3,
+                                             long long ra, int F3, int tq) {
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long row = ra + (i % 2) * 8;
+      const int k = 16 * kk + 2 * tq + (i / 2) * 8;
+      __nv_bfloat162 v;
+      v.x = k < F3 ? x3[row * F3 + k] : zero;
+      v.y = k + 1 < F3 ? x3[row * F3 + k + 1] : zero;
+      xf[kk][i] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+  }
+}
+
+// p of one warp's 16 rows x 8 columns: ``brow`` points at column 2*tq of
+// the kc3^T row n0 + g (n0: the tile's first column; any row stride, shared
+// or global memory), ``bb0`` / ``bb1`` are b3 at columns n0 + 2tq and + 1
+// (0 past C). p[2h + e] is row g + 8h, column n0 + 2tq + e — the layout of
+// the mma.sync accumulator.
+__device__ __forceinline__ void lin_p_mma(float (&p)[4],
+                                          const uint32_t (&xf)[2][4],
+                                          const __nv_bfloat16* brow,
+                                          float bb0, float bb1) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    mma_m16n8k16(c, xf[kk],
+                 *reinterpret_cast<const uint32_t*>(brow + 16 * kk),
+                 *reinterpret_cast<const uint32_t*>(brow + 16 * kk + 8));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float r = __bfloat162float(__float2bfloat16(c[i]));
+    p[i] = __bfloat162float(__float2bfloat16(r + (i % 2 ? bb1 : bb0)));
+  }
 }
 
 // Largest copy width (16, 8 or 4 bytes) that every bf16 row of ``cols``

@@ -29,7 +29,8 @@ class EllAdjFactored:
 
     1. ``impl == "bsr"`` with the block values ``vals`` built by B1 (both
        factors folded in): one B2 launch, backward B2 over the binary
-       transpose blocks ``vals_t`` (None when gradients are disabled);
+       transpose blocks ``vals_t`` (None when gradients are disabled), each
+       walking the live slots ``slots`` / ``slots_t``;
     2. ``impl == "bsr"`` with block metadata but no ``vals``: B7 builds
        each block from the ELL inside the kernel, both ways;
     3. otherwise ELL gathers both ways (``ell_spmm_factored``)."""
@@ -47,13 +48,15 @@ class EllAdjFactored:
     blk_mask_t: Optional[torch.Tensor] = None
     vals: Optional[torch.Tensor] = None        # [B, R, M, T, T]
     vals_t: Optional[torch.Tensor] = None      # [B, R, MT, T, T] binary
+    slots: Optional[torch.Tensor] = None       # i32[B, R] live slot counts
+    slots_t: Optional[torch.Tensor] = None     # i32[B, R] of blk_cols_t
     impl: str = "gather"                       # "bsr" | "gather"
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.impl == "bsr" and self.vals is not None:
             return bsr_matmul_precomp(
                 self.vals, self.blk_cols, self.vals_t, self.blk_cols_t,
-                self.scale, self.self_w, x,
+                self.scale, self.self_w, x, self.slots, self.slots_t,
             )
         dt = x.dtype
         if self.impl == "bsr" and self.blk_cols is not None:

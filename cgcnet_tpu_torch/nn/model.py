@@ -31,7 +31,7 @@ from cgcnet_tpu_torch.nn.blocks import (
 )
 from cgcnet_tpu_torch.nn.jk import BiLSTMParams, DenseJK
 from cgcnet_tpu_torch.nn.layers import TorchLinear, activation
-from cgcnet_tpu_torch.ops.bsr import bsr_build_blocks
+from cgcnet_tpu_torch.ops.bsr import bsr_build_blocks, live_slot_counts
 from cgcnet_tpu_torch.ops.ell import EPS, renorm_dense, renorm_ell
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -55,7 +55,9 @@ def make_stage1_adj(
       factored A = diag(scale)·B_off + diag(self_w) over ELL gathers;
     - otherwise the factored A with its BSR blocks built once (B1; the self
       weight folds into ELL slot 0). With gradients enabled a second B1
-      launch builds the binary blocks of B_off^T for the backward.
+      launch builds the binary blocks of B_off^T for the backward. Beside
+      each B1 launch, the live slot counts of its blocks (B2's
+      ``live_slots``), once per batch and direction.
 
     ``use_pallas='auto'`` means the kernel path here: the CUDA kernels on a
     CUDA batch, their plain versions on a CPU batch."""
@@ -85,13 +87,19 @@ def make_stage1_adj(
         scale = valid
         self_w = has_self * valid
         rowsum = (deg + has_self) * valid
-    vals = vals_t = None
+    vals = vals_t = slots = slots_t = None
     if bsr:
         is_self = graph.nbr_mask * is_slot_self
         w_fwd = scale[..., None] * off + self_w[..., None] * is_self
         vals = bsr_build_blocks(
             graph.nbr, w_fwd, graph.blk_cols, graph.blk_mask, dtype
         )
+        # made here, beside B1, and not by the loader: every batch with block
+        # metadata reaches B1 through this function, also one built outside
+        # GraphLoader (a converted JAX batch, a test's), so one place serves
+        # all; it costs a few small launches per batch and direction, none
+        # per B2 call
+        slots = live_slot_counts(graph.blk_mask)
         if torch.is_grad_enabled():
             if graph.blk_cols_t is None:
                 raise ValueError(
@@ -101,13 +109,15 @@ def make_stage1_adj(
             vals_t = bsr_build_blocks(
                 graph.nbr_t, off_t, graph.blk_cols_t, graph.blk_mask_t, dtype
             )
+            slots_t = live_slot_counts(graph.blk_mask_t)
     return EllAdjFactored(
         nbr=graph.nbr, off_mask=off.to(dtype), nbr_t=graph.nbr_t,
         off_mask_t=off_t.to(dtype), scale=scale.to(dtype),
         self_w=self_w.to(dtype), rowsum_=rowsum.to(dtype),
         blk_cols=graph.blk_cols, blk_mask=graph.blk_mask,
         blk_cols_t=graph.blk_cols_t, blk_mask_t=graph.blk_mask_t,
-        vals=vals, vals_t=vals_t, impl="bsr" if bsr else "gather",
+        vals=vals, vals_t=vals_t, slots=slots, slots_t=slots_t,
+        impl="bsr" if bsr else "gather",
     )
 
 

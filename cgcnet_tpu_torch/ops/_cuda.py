@@ -38,9 +38,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # nbr, w, blk_cols, blk_mask, vals, B, N, K, R, M, dtype, device, stream
     "cgc_bsr_build_blocks": [_P] * 5 + [_I] * 7 + [_P],
-    # vals, blk_cols, x, out, B, R, M, NC, F, vals_dtype, dtype, device,
-    # stream
-    "cgc_bsr_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    # vals, blk_cols, live_slots, x, out, B, R, M, NC, F, vals_dtype, dtype,
+    # device, stream
+    "cgc_bsr_matmul": [_P] * 5 + [_I] * 8 + [_P],
     # vals, blk_cols, x, halo (null: x's tail), acc (null), epilogue_sw
     # (null), out, out_tail (null), live_slots (null: every slot), B, R, M,
     # ns_tiles, NX, NH, F, NA, vals_dtype, dtype, device, stream
@@ -68,6 +68,9 @@ _SIGNATURES = {
     # x3, kc3, b3, n_nodes, partial, out, B, N, F3, C, tile_rows, dtype,
     # device, stream
     "cgc_l2relu_stats_lin": [_P] * 6 + [_I] * 7 + [_P],
+    # test only: x3, kc3t, b3, p, rows, F3, C, kc3t's rows and columns,
+    # device, stream
+    "cgc_lin_p_probe": [_P] * 4 + [_I] * 6 + [_P],
     # p, dh, u, w, n_nodes, dp, B, N, C, dtype, device, stream
     "cgc_assign_tail_bwd": [_P] * 6 + [_I] * 5 + [_P],
 }

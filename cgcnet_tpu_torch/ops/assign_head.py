@@ -33,8 +33,13 @@ and p chunk by chunk in two phases.
 
 In bf16 the heads' product (B4, B6, B9a) runs on the tensor cores over
 one zero-padded copy of [K12 ; K3f] (``pad_head_weights``, made per call)
-and, for B9a, a transposed padded kc3 (``pad_lin_kernel``); in f32 on the
-SIMT kernel.
+and, for B9a, a transposed padded kc3 (``pad_lin_kernel``) from which one
+device routine forms p for its row norm and its product; in f32 on the
+SIMT kernels.
+``l2relu_stats_reference`` / ``l2relu_stats_lin_reference`` are the exact
+(f64) yardsticks of B3's and B9b's statistics for the card's hold, and
+``STATS_TOL``, ``stats_distance`` and the witnesses' routes its measure; no
+path of the package calls them.
 
 Replaces ``cgcnet_tpu/ops/pallas/assign_head.py``: ``_fwd_call_pre`` (B4),
 ``_stats_call`` (B3), ``_bwd_call`` (B5), ``_fwd_call`` (B6),
@@ -349,6 +354,30 @@ def l2relu_stats(
 
 
 l2relu_stats.launches = 0
+
+
+def l2relu_stats_reference(
+    p: torch.Tensor,        # [B, N, C] conv3 raw lin output
+    n_nodes: torch.Tensor,  # i32[B]
+    rnorm=None,             # [B, N, 1] f32 in place of the plain row norm
+    round_h: bool = True,   # False: h summed without its rounding to T
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum[C], sumsq[C]) in f64 of the h that :func:`l2relu_stats_plain`
+    sums — rnorm in f32 as it forms it, h = round_T(relu(p) * rnorm) on real
+    rows — added in f64, so exact but for f64 rounding: the yardstick the
+    card holds B3's and B9b's f32 sums against (``chip_smoke.py``'s
+    statistics hold). ``rnorm`` and ``round_h`` make the hold's witnesses
+    (a right computation by another route, one a rounding step off). No
+    path of the package calls it."""
+    pf = p.float()
+    if rnorm is None:
+        rnorm, _ = _rnorm_h(pf)
+    h = torch.clamp_min(pf, 0.0) * rnorm
+    h = h * _prefix_mask(n_nodes, p.shape[1])[..., None]
+    if round_h:
+        h = h.to(p.dtype)
+    h = h.double()
+    return torch.sum(h, dim=(0, 1)), torch.sum(h * h, dim=(0, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -789,6 +818,78 @@ def l2relu_stats_lin(x3, kc3, b3, n_nodes):
 
 
 l2relu_stats_lin.launches = 0
+
+
+def l2relu_stats_lin_reference(x3, kc3, b3, n_nodes):
+    """:func:`l2relu_stats_reference` of p = :func:`lin_p` (x3, kc3, b3),
+    the p of :func:`l2relu_stats_lin_plain`: B9b's exact yardstick. No path
+    of the package calls it."""
+    return l2relu_stats_reference(lin_p(x3, kc3, b3), n_nodes)
+
+
+# ---------------------------------------------------------------------------
+# The statistics hold (chip_smoke.py, phase 10): B3's and B9b's statistics
+# against the exact ones, between two witnesses. No path calls these.
+# ---------------------------------------------------------------------------
+
+# Each column's sum and sum of squares against the exact ones, as
+# |stat - exact| / |exact|, the max over the 2C statistics. A right
+# computation errs by its f32 sums (a few 1e-7 to 1e-6) and by the rare
+# values that a right p or row norm of another summation order rounds to
+# the neighbouring bf16 step; a computation one rounding step off moves most
+# values of every column by up to half a step. On the H100, at the whole
+# slide's 100352 rows (bf16), the readings the limit was set from were: B3
+# kernel 1.251e-6, witness (i) 4.211e-6, witness (ii) 1.412e-4; B9b kernel
+# 1.251e-6, witness (i) 1.091e-6, witness (ii) 3.567e-3. 2^-15 sits near the
+# geometric middle of B3's two witnesses (2.4e-5), 7x above witness (i) and
+# 4.6x below witness (ii). The limit is for that size: a right
+# computation's distance falls as 1 / rows (a flip against its column's
+# sum), a wrong one's as 1 / sqrt(rows), so at a few hundred rows one flip
+# of a right computation reads ~4e-5; from ~4096 rows on it sits below.
+STATS_TOL = 2.0 ** -15
+
+
+def stats_distance(got, ref) -> float:
+    """max over the columns of (sum, sumsq) of |got - ref| / |ref|; a column
+    whose exact sum is 0 (no positive h) counts 0 where got is 0, else
+    inf."""
+    worst = 0.0
+    for g, r in zip(got, ref):
+        d = (g.double() - r).abs()
+        rel = d / r.abs()
+        zero = r == 0
+        rel[zero] = torch.where(d[zero] == 0, 0.0, float("inf")).double()
+        worst = max(worst, rel.max().item())
+    return worst
+
+
+def rnorm_two_halves(p: torch.Tensor) -> torch.Tensor:
+    """B3's witness (i): the plain row norm with its sum of squares taken
+    as two half-row sums — a right row norm summed in another order."""
+    pf = p.float()
+    half = pf.shape[-1] // 2
+    lo, hi = pf[..., :half], pf[..., half:]
+    ss = (lo * lo).sum(-1, keepdim=True) + (hi * hi).sum(-1, keepdim=True)
+    return 1.0 / torch.clamp_min(torch.sqrt(ss), 1e-12)
+
+
+def lin_p_reversed(x3, kc3, b3) -> torch.Tensor:
+    """B9b's witness (i): p = round_T(round_T(dot) + b3) with the F3-term
+    dot summed in reverse order, one f32 rounding per product and per
+    addition — a right p by another route."""
+    dt = x3.dtype
+    xf, kf = x3.float(), kc3.to(dt).float()
+    dot = xf[..., -1:] * kf[-1]
+    for k in range(kf.shape[0] - 2, -1, -1):
+        dot = dot + xf[..., k:k + 1] * kf[k]
+    return dot.to(dt) + b3.to(dt)
+
+
+def lin_p_rounded_once(x3, kc3, b3) -> torch.Tensor:
+    """B9b's witness (ii): round_T(dot + b3), one rounding where the
+    function has two — a p one rounding step off."""
+    dt = x3.dtype
+    return (x3.float() @ kc3.to(dt).float() + b3.to(dt).float()).to(dt)
 
 
 class AssignTailTrainChunkedLin(torch.autograd.Function):

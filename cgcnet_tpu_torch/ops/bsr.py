@@ -12,8 +12,9 @@ path's A_loc @ [x ++ halo]: x's local column tiles and the halo rows come
 as two arrays, with an optional row accumulator (``acc``, split outputs)
 or a ``scale*(A@x) + self_w*x`` epilogue. The slide path stores its binary
 blocks in int8: B1 writes them and B2 and B8 convert them to x's type where
-they are used. bf16 B8 legs at least 128 wide run on the tensor cores and
-stop each row tile's walk at its last live slot (``live_slot_counts``).
+they are used. B2 (every leg) and bf16 B8 legs at least 128 wide stop each
+row tile's walk at its last live slot (``live_slot_counts``, made once per
+set of blocks); bf16 B2 and those B8 legs run on the tensor cores.
 
 Each device function has a plain PyTorch version of the same signature
 (``*_plain``). The wrapper takes the plain version only for tensors that lie
@@ -268,10 +269,12 @@ def bsr_matmul_plain(
     vals: torch.Tensor,      # [B, R, M, T, T] from bsr_build_blocks
     blk_cols: torch.Tensor,  # i32[B, R, M]
     x: torch.Tensor,         # [B, NC, F]
+    live_slots=None,         # i32[B, R] (live_slot_counts); not read here
 ) -> torch.Tensor:
     """out[B, R*T, F] = sum_m vals[:, r, m] @ x[:, blk_cols*T : +T], f32
     accumulation, stored in x's dtype; x rows past NC read as zero. int8
-    ``vals`` convert to x's dtype where they are used."""
+    ``vals`` convert to x's dtype where they are used. ``live_slots``
+    changes no value (the slots past it hold zero blocks) and is ignored."""
     b, r, m = blk_cols.shape
     nc, f = x.shape[1], x.shape[2]
     tiles = -(-nc // TILE)
@@ -290,32 +293,45 @@ def bsr_matmul_plain(
 
 
 def bsr_matmul(
-    vals: torch.Tensor, blk_cols: torch.Tensor, x: torch.Tensor
+    vals: torch.Tensor, blk_cols: torch.Tensor, x: torch.Tensor,
+    live_slots: torch.Tensor,
 ) -> torch.Tensor:
     """B2. Same contract as :func:`bsr_matmul_plain`; launches
-    ``csrc/bsr_matmul.cu`` for CUDA tensors. ``vals`` must be in x's dtype
-    or int8."""
+    ``csrc/bsr_matmul.cu`` for CUDA tensors, which walks each row tile's
+    slots only up to ``live_slots`` (i32[B, R], :func:`live_slot_counts` of
+    the blocks' ``blk_mask``, made once per set of blocks): bf16 x on the
+    tensor cores, f32 x on the CUDA cores. ``vals`` must be in x's dtype or
+    int8."""
     b, r, m = blk_cols.shape
     if vals.shape != (b, r, m, TILE, TILE) or x.shape[0] != b:
         raise ValueError(
             f"bsr_matmul: vals {tuple(vals.shape)}, blk_cols "
             f"{tuple(blk_cols.shape)} and x {tuple(x.shape)} disagree"
         )
+    if not isinstance(live_slots, torch.Tensor) \
+            or tuple(live_slots.shape) != (b, r) \
+            or live_slots.dtype != torch.int32:
+        got = (f"{tuple(live_slots.shape)} {live_slots.dtype}"
+               if isinstance(live_slots, torch.Tensor) else repr(live_slots))
+        raise ValueError(f"bsr_matmul: live_slots {got} must be "
+                         f"i32[{b}, {r}] (live_slot_counts of the blocks)")
     _check_vals_dtype("bsr_matmul", vals, x)
     if x.device.type == "cpu":
-        return bsr_matmul_plain(vals, blk_cols, x)
+        return bsr_matmul_plain(vals, blk_cols, x, live_slots)
     if x.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"bsr_matmul: unsupported dtype {x.dtype}")
     nc, f = x.shape[1], x.shape[2]
     blk_cols = blk_cols.to(torch.int32).contiguous()
+    live_slots = live_slots.contiguous()
     x = x.contiguous()
-    _cuda.require_cuda("bsr_matmul", vals, blk_cols, x)
+    _cuda.require_cuda("bsr_matmul", vals, blk_cols, live_slots, x)
     out = torch.empty((b, r * TILE, f), dtype=x.dtype, device=x.device)
     _cuda.launch(
         "cgc_bsr_matmul",
-        vals.data_ptr(), blk_cols.data_ptr(), x.data_ptr(), out.data_ptr(),
-        b, r, m, nc, f, _cuda.VALS_CODES[vals.dtype],
-        _cuda.DTYPE_CODES[x.dtype], x.device.index, _cuda.stream_of(x),
+        vals.data_ptr(), blk_cols.data_ptr(), live_slots.data_ptr(),
+        x.data_ptr(), out.data_ptr(), b, r, m, nc, f,
+        _cuda.VALS_CODES[vals.dtype], _cuda.DTYPE_CODES[x.dtype],
+        x.device.index, _cuda.stream_of(x),
     )
     bsr_matmul.launches += 1
     return out
@@ -528,8 +544,8 @@ def _check_windows(vals, blk_cols, win_base, ns_rows, h_tiles, halo_win,
 def live_slot_counts(blk_mask: torch.Tensor) -> torch.Tensor:
     """i32[..., R]: for each row tile of a ``blk_mask`` [..., R, M], the
     number of its block slots up to and including its last live one (0 for
-    a row tile without one) — B8's ``live_slots``: the slots past it hold
-    exact-zero blocks, and the tensor-core kernel stops its walk there."""
+    a row tile without one) — B2's and B8's ``live_slots``: the slots past
+    it hold exact-zero blocks, and the kernels stop their walk there."""
     m = blk_mask.shape[-1]
     pos = torch.arange(1, m + 1, dtype=torch.int32, device=blk_mask.device)
     return torch.amax((blk_mask > 0).to(torch.int32) * pos, dim=-1).to(

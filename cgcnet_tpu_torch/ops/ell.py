@@ -14,7 +14,8 @@ Port of ``cgcnet_tpu/ops/ell.py``:
   the ELL inside the kernel), both directions;
 - ``bsr_matmul_precomp``: A @ x with A's block values, weights folded in,
   built once per batch by B1; its backward B_off^T (scale*g) + self_w*g
-  over the binary transpose blocks (B2 both ways);
+  over the binary transpose blocks (B2 both ways, each walking its blocks'
+  live slots);
 - ``bsr_local_matmul``: the whole-slide path's per-shard A_loc @ [h ++
   halo] over int8 blocks — B8 for the wide (F >= BAND_MIN_F) legs at
   2-byte activations when the window tables exist, B2 otherwise — and its
@@ -132,24 +133,28 @@ class BsrMatmulPrecomp(torch.autograd.Function):
     matvec is one B2 launch with no epilogue. Backward: A^T g =
     B_off^T (scale*g) + self_w*g, one B2 launch over the BINARY transpose
     blocks ``vals_t`` (folding scale into them would need each in-edge's row
-    scale). When x needs no gradient autograd skips the backward."""
+    scale). ``slots`` / ``slots_t`` are the live slot counts of ``blk_cols``
+    / ``blk_cols_t`` (B2's ``live_slots``). When x needs no gradient
+    autograd skips the backward."""
 
     @staticmethod
-    def forward(ctx, vals, blk_cols, vals_t, blk_cols_t, scale, self_w, x):
-        ctx.save_for_backward(vals_t, blk_cols_t, scale, self_w)
-        return bsr_matmul(vals, blk_cols, x)
+    def forward(ctx, vals, blk_cols, vals_t, blk_cols_t, scale, self_w, x,
+                slots, slots_t):
+        ctx.save_for_backward(vals_t, blk_cols_t, scale, self_w, slots_t)
+        return bsr_matmul(vals, blk_cols, x, slots)
 
     @staticmethod
     def backward(ctx, g):
-        vals_t, blk_cols_t, scale, self_w = ctx.saved_tensors
+        vals_t, blk_cols_t, scale, self_w, slots_t = ctx.saved_tensors
         if vals_t is None:
             raise RuntimeError(
                 "bsr_matmul_precomp: no transpose blocks (vals_t) — the "
                 "stage-1 adjacency was built with gradients disabled"
             )
         sg = scale[..., None].to(g.dtype) * g
-        dx = bsr_matmul(vals_t, blk_cols_t, sg) + self_w[..., None].to(g.dtype) * g
-        return None, None, None, None, None, None, dx
+        dx = (bsr_matmul(vals_t, blk_cols_t, sg, slots_t)
+              + self_w[..., None].to(g.dtype) * g)
+        return (None,) * 6 + (dx, None, None)
 
 
 def bsr_matmul_precomp(
@@ -160,10 +165,12 @@ def bsr_matmul_precomp(
     scale: torch.Tensor,       # [B, N] row scales of A
     self_w: torch.Tensor,      # [B, N] diagonal weights of A
     x: torch.Tensor,           # [B, N, F]
+    slots: torch.Tensor,       # i32[B, R] live slot counts of blk_cols
+    slots_t,                   # i32[B, R] of blk_cols_t, or None
 ) -> torch.Tensor:
     """A @ x with A's backward through the transpose blocks (B2 both ways)."""
     return BsrMatmulPrecomp.apply(vals, blk_cols, vals_t, blk_cols_t, scale,
-                                  self_w, x)
+                                  self_w, x, slots, slots_t)
 
 
 def _banded_on(win, x: torch.Tensor) -> bool:
@@ -195,7 +202,8 @@ class BsrLocalMatmul(torch.autograd.Function):
                 halo=halo[None], halo_win=hw, check_windows=False,
                 live_slots=slots,
             )[0]
-        return bsr_matmul(vals, blk_cols, torch.cat([h, halo], dim=0)[None])[0]
+        return bsr_matmul(vals, blk_cols, torch.cat([h, halo], dim=0)[None],
+                          slots)[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -210,7 +218,7 @@ class BsrLocalMatmul(torch.autograd.Function):
                 check_windows=False, live_slots=slots_t,
             )[0]
         else:
-            d_xx = bsr_matmul(vals_t, blk_cols_t, g[None])[0]
+            d_xx = bsr_matmul(vals_t, blk_cols_t, g[None], slots_t)[0]
         if nbr_t_h is not None and nbr_t_h.shape[0]:
             # hybrid transpose: the halo rows' in-edges as an ELL gather
             d_halo = ell_gather_sum(
@@ -235,7 +243,8 @@ def bsr_local_matmul(
                                #   (hybrid transpose)
     mask_t_h=None,             # f32[H, KT]
     slots=None,                # i32[1, R] live slot counts of blk_cols
-    slots_t=None,              # i32[1, RC] of blk_cols_t (B8's live_slots)
+    slots_t=None,              # i32[1, RC] of blk_cols_t (B2's and B8's
+                               #   live_slots)
 ) -> torch.Tensor:
     """[Ns, F] = A_loc @ [h ++ halo] (:class:`BsrLocalMatmul`)."""
     return BsrLocalMatmul.apply(vals, blk_cols, win, vals_t, blk_cols_t,

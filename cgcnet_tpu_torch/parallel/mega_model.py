@@ -167,7 +167,7 @@ def build_vals(inp: MegaInputs) -> None:
     the self weight applies outside the block product) and of its
     transpose, over the rows its blocks cover; then the window contract of
     the tables (:func:`check_windows`) and each row tile's live slot count
-    (B8's ``live_slots``)."""
+    (B2's and B8's ``live_slots``), once per set of blocks."""
     row = torch.arange(inp.nbr_remap.shape[0], device=inp.device)
     off = inp.nbr_mask * (inp.nbr_remap != row[:, None]).to(inp.nbr_mask.dtype)
     inp.vals = bsr_build_blocks(

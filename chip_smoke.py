@@ -8,10 +8,11 @@ Phases, each fatal on failure (exit code != 0):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build of the hand-written kernels from ``cgcnet_tpu_torch/csrc`` (nvcc),
    with the compiler's registers and spills of every instantiation of the
-   bf16 tensor-core kernels (``banded_tc_kernel``, ``gemm_tc_kernel``);
+   bf16 tensor-core kernels (``TC_KERNELS``);
 3. kernels: B1 (block build, for A and for the binary transpose blocks),
    B2 (block-sparse matmul, at every width one training step gives it, on
-   the forward and on the transpose blocks), B3 (BN statistics of the assign
+   the forward and on the transpose blocks, walking the live slots the
+   model counted beside B1), B3 (BN statistics of the assign
    tail), B4 (fused assign head) and B5 (assign-tail backward) on the inputs
    that one canonical SAGE training step gives them, B6 (fused assign
    softmax) on those of one canonical GIN step, and B7 (block-sparse
@@ -57,6 +58,11 @@ Phases, each fatal on failure (exit code != 0):
    = 5, B5 = 2, B8 = 2, B2 = 8 per step), gradients against the plain
    versions on the card; then an f32 forward and step of an 8192-nuclei
    slide on the card against the CPU (block tables built by hand for both);
+   then the statistics hold: B3's and B9b's column sums and sums of squares
+   on the slide's own bf16 inputs against the exact (f64) statistics of the
+   plain version's h, within ``assign_head.STATS_TOL``, printed beside the plain
+   versions' and two witnesses' distances (a right computation by another
+   route, which must pass, and one a rounding step off, which must fail);
    then B8 (the A @ S legs, the transpose legs with and without the
    accumulator, halo windows from shard 0 of a 4-shard stripe-sorted
    partition — on no path of this run, 0 launches —, the ``epilogue_sw``
@@ -319,7 +325,8 @@ def record_kernel(results, name, key, dt, out, ref, kernel_fn, plain_fn,
     events), and append the kernel-line entry to ``results``; ``paths``
     names the main paths whose launches it counts (default the patch
     paths; () for a variant that no path of this run takes); ``extra``
-    adds fields to the entry (the head's yardstick and split)."""
+    adds fields to the entry (the head's yardstick and split); ``ops`` may
+    be a {dtype: count} split, each part at its type's peak rate."""
     import torch
 
     torch.cuda.synchronize()
@@ -341,7 +348,11 @@ def record_kernel(results, name, key, dt, out, ref, kernel_fn, plain_fn,
         except (RuntimeError, NotImplementedError) as e:
             log(f"  library call unavailable for {name}: {e}")
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[ops_dt or dt] * 1e3
+    # ops: a count at the rate of ops_dt (default the leg's type), or
+    # {type: count} for work split between the tensor cores and the CUDA
+    # cores (B9b in bf16), each part at its own rate
+    parts = ops if isinstance(ops, dict) else {ops_dt or dt: ops}
+    t_ops = sum(n / PEAK_OPS_PER_S[d] for d, n in parts.items()) * 1e3
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": None, "max_abs_err": err,
@@ -447,22 +458,28 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
         # ---- B2, at every width a training step gives it, on the forward
         # blocks (the first 4 calls) and the transpose blocks (the rest) ----
         done = set()
-        for i, (_, _, x_) in enumerate(seen["B2"]):
+        for i, (_, _, x_, slots) in enumerate(seen["B2"]):
             which, vals, blk_cols, blk_mask = blocks[
                 0 if i < SERVE_PER_BATCH["B2"] else 1]
             if (which, x_.shape[-1]) in done:
                 continue
             done.add((which, x_.shape[-1]))
+            if not torch.equal(slots, bsr.live_slot_counts(blk_mask)):
+                raise SystemExit(f"B2 {which}: the model's live slot counts "
+                                 "are not its blocks'")
             b, r, m = blk_cols.shape
             nnzb = int(blk_mask.sum().item())
+            walked = int(slots.sum().item())
             x = x_.to(dt)
             nc, f = x.shape[1], x.shape[2]
-            out = bsr.bsr_matmul(vals, blk_cols, x)
-            ref = bsr.bsr_matmul_plain(vals, blk_cols, x)
+            out = bsr.bsr_matmul(vals, blk_cols, x, slots)
+            ref = bsr.bsr_matmul_plain(vals, blk_cols, x, slots)
             record(
-                f"B2 bsr_matmul {which} {tag} B={b} N={nc} M={m} F={f}", "B2",
+                f"B2 bsr_matmul {which} {tag} B={b} N={nc} M={m} live "
+                f"slots {walked} of {b * r * m} F={f}", "B2",
                 dt_name, out, ref,
-                lambda x=x, v=vals, c=blk_cols: bsr.bsr_matmul(v, c, x),
+                lambda x=x, v=vals, c=blk_cols, s_=slots:
+                    bsr.bsr_matmul(v, c, x, s_),
                 lambda x=x, v=vals, c=blk_cols: bsr.bsr_matmul_plain(v, c, x),
                 bytes_=nnzb * t * t * isz + b * r * m * 4
                 + b * nc * f * isz + b * r * t * f * isz,
@@ -560,7 +577,7 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
                     graph.blk_cols_t, graph.blk_mask_t),
         }
         done = set()
-        for i, (_, _, x_) in enumerate(seen["B2"]):
+        for i, (_, _, x_, _) in enumerate(seen["B2"]):
             which = "A" if i < SERVE_PER_BATCH["B2"] else "A^T"
             if (which, x_.shape[-1]) in done:
                 continue
@@ -576,7 +593,8 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
             # the same operator through B1 -> B2: the same f32 block sums,
             # rounded alike, multiplied in another kernel
             via = bsr.bsr_matmul(
-                bsr.bsr_build_blocks(nbr, w, blk_cols, blk_mask, dt), blk_cols, x)
+                bsr.bsr_build_blocks(nbr, w, blk_cols, blk_mask, dt), blk_cols,
+                x, bsr.live_slot_counts(blk_mask))
             err12 = (out.float() - via.float()).abs().max().item()
             tol12 = TOL[("B7", dt_name)] * via.float().abs().max().item()
             log(f"  B7 {which} {tag} F={f} vs B1 -> B2: max_abs_err "
@@ -1360,7 +1378,60 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
     return out
 
 
-def slide_kernel_phase(seen: dict, device) -> list[dict]:
+def stats_hold(p3, n3, lin9, n9) -> dict:
+    """B3 (on ``p3``) and B9b (on ``lin9`` = (x3, kc3, b3)) against the
+    exact statistics, beside the plain versions' f32 sums and the two
+    witnesses; fails unless the kernels and witness (i) are within
+    ``ah.STATS_TOL`` and witness (ii) is not. Returns the distances."""
+    import torch
+    from cgcnet_tpu_torch.ops import assign_head as ah
+
+    x3, kc3, b3 = lin9
+    tol = ah.STATS_TOL
+    cases = {
+        "B3": (ah.l2relu_stats_reference(p3, n3), {
+            "kernel": lambda: ah.l2relu_stats(p3, n3),
+            "plain": lambda: ah.l2relu_stats_plain(p3, n3),
+            "witness (i): row norm as two half-row sums": lambda:
+                ah.l2relu_stats_reference(p3, n3,
+                                          rnorm=ah.rnorm_two_halves(p3)),
+            "witness (ii): h summed without its rounding": lambda:
+                ah.l2relu_stats_reference(p3, n3, round_h=False),
+        }),
+        "B9b": (ah.l2relu_stats_lin_reference(x3, kc3, b3, n9), {
+            "kernel": lambda: ah.l2relu_stats_lin(x3, kc3, b3, n9),
+            "plain": lambda: ah.l2relu_stats_lin_plain(x3, kc3, b3, n9),
+            "witness (i): the dot summed in reverse order": lambda:
+                ah.l2relu_stats_reference(ah.lin_p_reversed(x3, kc3, b3),
+                                          n9),
+            "witness (ii): p rounded once": lambda:
+                ah.l2relu_stats_reference(
+                    ah.lin_p_rounded_once(x3, kc3, b3), n9),
+        }),
+    }
+    out = {}
+    for key, (ref, runs) in cases.items():
+        dist = {}
+        for what, fn in runs.items():
+            dist[what] = ah.stats_distance(fn(), ref)
+            torch.cuda.empty_cache()
+        kern, w1, w2 = (dist[k] for k in dist if k != "plain")
+        ok = kern <= tol and w1 <= tol and w2 > tol
+        log(f"  statistics hold {key} (bf16, {p3.shape[1]} rows): max over "
+            f"columns of |stat - exact| / |exact|, tol {tol:.3e}: "
+            + "; ".join(f"{k} {v:.3e}" for k, v in dist.items())
+            + f" -> {'ok' if ok else 'FAIL'}")
+        if not (w1 <= tol and w2 > tol):
+            raise SystemExit(f"statistics hold {key}: the tolerance does not "
+                             "separate the witnesses")
+        if not kern <= tol:
+            raise SystemExit(f"statistics hold {key}: the kernel's "
+                             "statistics are off the exact ones")
+        out[key] = dist
+    return out
+
+
+def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
     """B8, B9a, B9b, B3, B4 (with ``c_out``), B5 and the int8 B1/B2 legs
     against their plain versions on the card, in f32 and bf16, on the inputs
     captured from phases 8-10 (one per distinct call shape), timed like
@@ -1390,6 +1461,13 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
 
     def calls(key):
         return [v for (k, _, _), v in seen.items() if k == key]
+
+    # ---- the statistics hold: B3 and B9b on the slide's own inputs ----
+    (p3, n3), _ = calls("B3")[0]
+    (x3h, kc3h, b3h, n9h), _ = calls("B9b")[0]
+    if p3.dtype != torch.bfloat16 or x3h.dtype != torch.bfloat16:
+        raise SystemExit("statistics hold: the slide's inputs are not bf16")
+    stats = stats_hold(p3, n3, (x3h, kc3h, b3h), n9h)
 
     b8_calls = calls("B8")
     names = []
@@ -1601,8 +1679,10 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
             lambda: ah.l2relu_stats_lin(*a9b),
             lambda: ah.l2relu_stats_lin_plain(*a9b),
             bytes_=rows_real * f3 * isz + (f3 + 1) * c * isz + 2 * c * 4,
-            # p formed per element (the F3-term dot), then the stats
-            ops=2 * rows_real * c * f3 + 6 * rows_real * c,
+            # p formed per element (the F3-term dot, which the card could
+            # run on the tensor cores in bf16), then the row norm and the
+            # sums (6 operations an element) on the f32 CUDA cores
+            ops={dt_name: 2 * rows_real * c * f3, "float32": 6 * rows_real * c},
             source="cgcnet_tpu_torch/csrc/assign_tail.cu",
             replaces="cgcnet_tpu/ops/pallas/assign_head.py:943",
         )
@@ -1624,18 +1704,21 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
                 replaces="cgcnet_tpu/ops/pallas/bsr_kernel.py:275",
             )
         # ---- int8 B2: every width and direction of the slide's legs ----
-        for (vals, bc_, x_), _ in calls("B2"):
+        for (vals, bc_, x_, slots), _ in calls("B2"):
             x = x_.to(dt)
             _, r, m = bc_.shape
             nc, f = x.shape[1], x.shape[2]
             live = vals.reshape(*vals.shape[:3], -1).ne(0).any(-1)
             nnzb = int(live.sum().item())
+            walked = int(slots.sum().item())
             which = "A" if r * t == SLIDE_CAP else "A^T"
             record(
-                f"B2 bsr_matmul int8 {which} {tag} N={nc} M={m} F={f}", "B2",
-                dt_name, bsr.bsr_matmul(vals, bc_, x),
-                bsr.bsr_matmul_plain(vals, bc_, x),
-                lambda x=x, v=vals, c_=bc_: bsr.bsr_matmul(v, c_, x),
+                f"B2 bsr_matmul int8 {which} {tag} N={nc} M={m} live slots "
+                f"{walked} of {r * m} F={f}", "B2",
+                dt_name, bsr.bsr_matmul(vals, bc_, x, slots),
+                bsr.bsr_matmul_plain(vals, bc_, x, slots),
+                lambda x=x, v=vals, c_=bc_, s_=slots:
+                    bsr.bsr_matmul(v, c_, x, s_),
                 lambda x=x, v=vals, c_=bc_: bsr.bsr_matmul_plain(v, c_, x),
                 bytes_=nnzb * t * t + r * m * 4 + nc * f * isz
                 + r * t * f * isz,
@@ -1645,7 +1728,7 @@ def slide_kernel_phase(seen: dict, device) -> list[dict]:
                 source="cgcnet_tpu_torch/csrc/bsr_matmul.cu",
                 replaces="cgcnet_tpu/ops/pallas/bsr_kernel.py:400",
             )
-    return results
+    return results, stats
 
 
 def _banded_library_call(vals, blk_cols, win, x, halo, live):
@@ -1735,7 +1818,8 @@ def slice_phase(tmp: Path, device) -> dict:
     slide = slide_phases(tmp, device, tmp / "model_SAGE.pt", slide_seen)
     paths.update(slide.pop("paths"))
     log("  slide kernels vs plain versions (inputs of phases 8-10)")
-    kernels += slide_kernel_phase(slide_seen, device)
+    slide_kernels, stats = slide_kernel_phase(slide_seen, device)
+    kernels += slide_kernels
     for entry in kernels:
         key = entry.pop("key")
         by_path = {name: paths[name][key] for name in entry.pop("paths")}
@@ -1743,7 +1827,8 @@ def slice_phase(tmp: Path, device) -> dict:
         entry["launches_by_path"] = by_path
         if by_path and entry["launches"] == 0:
             raise SystemExit(f"{entry['name']}: no launch on any path")
-    return {**slide, "kernels": kernels, "forward_ms_per_batch": fwd_ms,
+    return {**slide, "kernels": kernels, "stats_hold": stats,
+            "forward_ms_per_batch": fwd_ms,
             "predict_wall_s": wall, "train_step_ms": train["step_ms"],
             "train_steps": train["steps"], "train_cli_wall_s": train["cli_wall_s"],
             "gin_forward_ms_per_batch": gin_fwd_ms, "gin_predict_wall_s": gin_wall,
@@ -1753,7 +1838,7 @@ def slice_phase(tmp: Path, device) -> dict:
 
 
 # the tensor-core kernels whose compiler report phase 2 must hold
-TC_KERNELS = ("banded_tc_kernel", "gemm_tc_kernel")
+TC_KERNELS = ("banded_tc_kernel", "gemm_tc_kernel", "bsr_matmul_tc_kernel")
 
 
 def tc_report(build_log: str) -> None:

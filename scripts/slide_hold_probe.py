@@ -4,6 +4,8 @@ holds (phases 9-10), on one NVIDIA GPU.
 
     python3 scripts/slide_hold_probe.py           # from the repository root
     python3 scripts/slide_hold_probe.py --holds   # the two holds only
+    python3 scripts/slide_hold_probe.py --b9b     # the capacity hold under
+                                                  # B9b statistics by route
 
 On chip_smoke.py's slide (``synthetic_slide(100000)``, one shard, bf16,
 the canonical model with its random initialisation, seed 1234) it prints
@@ -20,6 +22,18 @@ the one-step loss of the capacity path (``assign_tail_chunk=65536``,
   seeds each), and taken exactly (row norm and sums in f64, rounded once)
   — how much the loss moves when only the last bits of the statistics do.
 
+``--b9b`` instead runs the capacity step's whole hold (loss and gradients,
+``chip_smoke.py``'s rule) with B9b's statistics taken by route, every other
+kernel on: the kernel, the plain version, the exact (f64) statistics, the
+statistics of p formed on the tensor cores by B9a's routine (the test-only
+``cgc_lin_p_probe``) summed by B3's kernel (row norm and sums in B9b's
+order: a B9b with that p), by PyTorch and exactly, and the plain and exact
+statistics nudged by a relative 1e-7 or 1e-6 (several seeds), with each
+un-nudged route's distance from the exact statistics as ``chip_smoke.py``'s
+statistics hold measures it; then how many p values the tensor-core routine
+and a reversed-order dot round to another bf16 value than the plain
+version.
+
 Imports nothing of JAX. Needs a card.
 """
 
@@ -30,6 +44,102 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+def b9b_routes(cs, ah, model, inputs, cfg, dev) -> None:
+    """The ``--b9b`` mode (module docstring)."""
+    import torch
+    from cgcnet_tpu_torch.ops import _cuda
+
+    def grads(c, replace):
+        with cs.sites_replaced(replace):
+            return cs.slide_grads(model, c, inputs, True)
+
+    cap = cfg.apply_overrides(cs.SLIDE_CAPACITY)
+    plain_all = lambda key, wrapper, plain: plain  # noqa: E731
+    g_plain = grads(cap, plain_all)
+    g_32 = grads(cap.apply_overrides(["model.compute_dtype=float32"]),
+                 plain_all)
+    spread = {n: cs.BF16_WIDEN * (g_plain[1][n] - g_32[1][n]).abs().max()
+              .item() for n in g_plain[1]}
+    lim = (cs.LOGIT_ATOL + cs.LOGIT_RTOL * abs(g_plain[0])
+           + cs.BF16_WIDEN * abs(g_plain[0] - g_32[0]))
+
+    def mma_p(x3, kc3, b3):
+        x = x3.reshape(-1, x3.shape[-1]).contiguous()
+        kc3t = ah.pad_lin_kernel(kc3)
+        bb = b3.to(torch.bfloat16).contiguous()
+        p = torch.empty((x.shape[0], kc3.shape[1]), dtype=torch.bfloat16,
+                        device=dev)
+        _cuda.launch("cgc_lin_p_probe", x.data_ptr(), kc3t.data_ptr(),
+                     bb.data_ptr(), p.data_ptr(), x.shape[0], x.shape[1],
+                     kc3.shape[1], *kc3t.shape, dev.index,
+                     _cuda.stream_of(x))
+        return p.reshape(x3.shape[:-1] + (kc3.shape[1],))
+
+    def exact(p, n_nodes):
+        return tuple(t.float() for t in ah.l2relu_stats_reference(p, n_nodes))
+
+    routes = {
+        "plain": lambda a, kern: ah.l2relu_stats_lin_plain(*a),
+        "kernel": lambda a, kern: kern(*a),
+        "exact": lambda a, kern: exact(ah.lin_p(*a[:3]), a[3]),
+        "tensor-core p, B3's kernel": lambda a, kern:
+            ah.l2relu_stats(mma_p(*a[:3]), a[3]),
+        "tensor-core p, PyTorch sums": lambda a, kern:
+            ah.l2relu_stats_plain(mma_p(*a[:3]), a[3]),
+        "tensor-core p, exact sums": lambda a, kern:
+            exact(mma_p(*a[:3]), a[3]),
+    }
+    runs = [(name, 0.0, 0) for name in routes]
+    runs += [("plain", 1e-7, s) for s in range(3)]
+    runs += [("plain", 1e-6, s) for s in range(5)]
+    runs += [("exact", 1e-6, s) for s in range(3)]
+    seen = {}
+    for name, rel, seed in runs:
+        def fn(*args, name=name, rel=rel, seed=seed):
+            seen.setdefault("args", args)
+            st = routes[name](args, kern["w"])
+            if rel:
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                st = tuple(t * (1 + rel * torch.randn(
+                    t.shape, generator=gen, device=dev)) for t in st)
+            return st
+        fn.launches = 0  # the wrapper counts through the name it replaces
+        kern = {}
+
+        def replace(key, wrapper, plain, fn=fn, kern=kern):
+            if key != "B9b":
+                return wrapper
+            kern["w"] = wrapper
+            return fn
+
+        loss, g = grads(cap, replace)
+        tag = f"B9b {name}" + (f", nudged by {rel:g} (seed {seed})"
+                               if rel else "")
+        if not rel:
+            a = seen["args"]
+            dist = ah.stats_distance(routes[name](a, kern["w"]),
+                                     ah.l2relu_stats_lin_reference(*a))
+            print(f"{tag}: statistics hold distance {dist:.3e} (tol "
+                  f"{ah.STATS_TOL:.3e})", flush=True)
+        verdict = "ok" if abs(loss - g_plain[0]) <= lim else "FAIL"
+        print(f"{tag}: loss {loss:.6f}, |loss - plain| "
+              f"{abs(loss - g_plain[0]):.3e} (tol {lim:.3e}) {verdict}",
+              flush=True)
+        try:
+            cs.grads_close(f"{tag}: gradients", g, g_plain[1], cs.GRAD_REL,
+                           widen=spread, zero_floor=cs.BF16_FLOOR)
+        except SystemExit as e:
+            print(f"  {e}", flush=True)
+    x3, kc3, b3, _ = seen["args"]
+    plain_p = ah.lin_p(x3, kc3, b3)
+    for name, got in (("tensor-core routine", mma_p(x3, kc3, b3)),
+                      ("reversed-order dot", ah.lin_p_reversed(x3, kc3, b3))):
+        d = got.float() - plain_p.float()
+        print(f"p values off the plain p, {name}: {int((d != 0).sum())} of "
+              f"{d.numel()} ({int((d > 0).sum())} up, {int((d < 0).sum())} "
+              "down)", flush=True)
 
 
 def main() -> int:
@@ -63,6 +173,11 @@ def main() -> int:
             Config(), {"origin": "slide_hold_probe random init, seed 1234"},
         )
         model = cs.slide_model(cfg, ckpt, dev)
+
+    if "--b9b" in sys.argv[1:]:
+        b9b_routes(cs, ah, model, inputs, cfg, dev)
+        print(torch.cuda.get_device_name(0))
+        return 0
 
     def loss(c, remat, replace=lambda key, wrapper, plain: wrapper):
         with cs.sites_replaced(replace):

@@ -10,7 +10,8 @@ only PyTorch; skips without a CUDA device. On the card:
 Tolerances are fractions of max|plain|: f32 — B1 exact (same f32 sums in
 the same slot order; int8 too), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4, B6
 1e-5, B7 1e-4, B8 1e-4, B9a 1e-5, B9b 1e-5 (sums in another order); bf16 — the two roundings of the stored result may land one bf16
-step apart, up to 2^-7 of the value, so 2^-6. Gradients, card vs CPU:
+step apart, up to 2^-7 of the value, so 2^-6. B9b in bf16 is also held
+against the exact (f64) statistics at ops/assign_head.STATS_TOL. Gradients, card vs CPU:
 1e-4 of max|grad| (f32 sums in another order through the same formulas).
 """
 
@@ -83,10 +84,11 @@ def test_kernels_match_plain(device, dtype):
         rtol=0, atol=0,
     )
     gen = torch.Generator(device=device).manual_seed(0)
+    slots = bsr.live_slot_counts(masks)
     for f, extra in ((18, 0), (40, 0), (300, 0), (40, 128)):
         x = torch.randn(2, 1024 + extra, f, device=device, generator=gen).to(dtype)
-        _close(bsr.bsr_matmul(vals, cols, x), bsr.bsr_matmul_plain(vals, cols, x),
-               tol_mm)
+        _close(bsr.bsr_matmul(vals, cols, x, slots),
+               bsr.bsr_matmul_plain(vals, cols, x), tol_mm)
     c, f12 = 204, 16
     x12 = torch.randn(2, 1024, f12, device=device, generator=gen).to(dtype)
     p = torch.randn(2, 1024, c, device=device, generator=gen).to(dtype)
@@ -180,8 +182,10 @@ def test_backward_matches_cpu(device):
         vals_t = bsr.bsr_build_blocks(args[0], (args[1] > 0).float(),
                                       args[2], args[3])
         x = x0.to(dev).requires_grad_(True)
+        slots = bsr.live_slot_counts(args[3])
         out = bsr_matmul_precomp(vals, args[2], vals_t, args[2],
-                                 scale.to(dev), self_w.to(dev), x)
+                                 scale.to(dev), self_w.to(dev), x, slots,
+                                 slots)
         torch.sum(out * g0.to(dev)).backward()
         return [out.detach(), x.grad]
 
@@ -229,7 +233,8 @@ def test_b6_b7_match_plain(device, dtype):
             _close(out, bsr.bsr_gather_sum_plain(nbr, weights, cols, masks, x),
                    tol_mm)
             vals = bsr.bsr_build_blocks(nbr, weights, cols, masks, dtype)
-            _close(out, bsr.bsr_matmul(vals, cols, x), tol_mm)
+            _close(out, bsr.bsr_matmul(vals, cols, x,
+                                       bsr.live_slot_counts(masks)), tol_mm)
 
 
 def test_b6_b7_backward_matches_cpu(device):
@@ -352,7 +357,8 @@ def test_slide_kernels_match_plain(device, dtype):
                                bcols.to(device), bmask.to(device), torch.int8)
     _close_to(out, ref, 0.0)
     xb = rnd(*nbr.shape[:2], 40).to(dtype)
-    _close_to(bsr.bsr_matmul(out, bcols.to(device), xb.to(device)),
+    _close_to(bsr.bsr_matmul(out, bcols.to(device), xb.to(device),
+                             bsr.live_slot_counts(bmask).to(device)),
               bsr.bsr_matmul_plain(ref, bcols, xb), tol)
     # B9a, B9b, B4 with c_out
     n, f12, f3, cc = 512, 40, 20, 1140
@@ -379,15 +385,23 @@ def test_slide_kernels_match_plain(device, dtype):
 # the bf16 tensor-core kernels (B8; B4, B6 and B9a's product) at their edges
 # ---------------------------------------------------------------------------
 
-def _kernel_names(fn) -> list[str]:
-    """Names of the CUDA kernels ``fn`` launches (torch.profiler trace)."""
+def _kernel_names(fn, tries: int = 3) -> list[str]:
+    """Names of the CUDA kernels ``fn`` launches (torch.profiler trace); a
+    trace that caught no device event — the profiler drops one now and then
+    — is taken again, up to ``tries`` times."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return names
 
 
 @pytest.mark.parametrize("f", [1140, 1152])
@@ -546,3 +560,123 @@ def test_heads_refuse_other_padding(device, monkeypatch):
                 with pytest.raises(RuntimeError, match="CUDA error"):
                     call()
                     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# B2 over live slots; bf16 B9b; B9a's p routine
+# ---------------------------------------------------------------------------
+
+def _b2_blocks(vdt, seed=21, b=2, r=6, m=5, nc=6 * 128 + 64):
+    """Blocks with every kind of row tile: no live slot (tile (0, 1)), all M
+    live (tile (1, 2)), a dead slot inside the walk (tile (0, 3): [1, 0, 1,
+    0, 0], count 3) and random prefixes; dead slots hold zero blocks, as B1
+    writes them. x has nc rows, past R*128 and not a multiple of 128."""
+    gen = torch.Generator().manual_seed(seed)
+    tiles = -(-nc // 128)
+    cols = torch.randint(0, tiles, (b, r, m), generator=gen, dtype=torch.int32)
+    lens = torch.randint(1, m, (b, r), generator=gen)
+    mask = (torch.arange(m)[None, None, :] < lens[..., None]).float()
+    mask[0, 1] = 0.0
+    mask[1, 2] = 1.0
+    mask[0, 3] = torch.tensor([1.0, 0.0, 1.0, 0.0, 0.0])
+    if vdt == torch.int8:
+        vals = torch.randint(-3, 4, (b, r, m, 128, 128), generator=gen,
+                             dtype=torch.int8)
+    else:
+        vals = torch.randn((b, r, m, 128, 128), generator=gen).to(vdt)
+    vals = vals * mask[..., None, None].to(vdt)
+    return vals, cols, mask, nc
+
+
+@pytest.mark.parametrize("f", [18, 24, 40, 1140])
+@pytest.mark.parametrize("xdt,vdt", [
+    (torch.bfloat16, torch.int8), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.int8), (torch.float32, torch.float32)])
+def test_b2_live_slots_match_plain(device, f, xdt, vdt):
+    """B2 walking only the live slots against its plain version (which sums
+    every slot) at the slide's and the patch path's widths: bf16 x on the
+    tensor cores, f32 x on the CUDA cores; a row tile without a live slot
+    comes out exact zeros."""
+    tol = 1e-4 if xdt == torch.float32 else 2.0 ** -6
+    vals, cols, mask, nc = _b2_blocks(vdt)
+    slots = bsr.live_slot_counts(mask)
+    assert slots[0, 1] == 0 and slots[1, 2] == 5 and slots[0, 3] == 3
+    x = torch.randn((2, nc, f), generator=torch.Generator().manual_seed(f))
+    x = x.to(xdt)
+    ref = bsr.bsr_matmul_plain(vals, cols, x)
+    args = [t.to(device) for t in (vals, cols, x, slots)]
+    launches = bsr.bsr_matmul.launches
+    out = bsr.bsr_matmul(*args)
+    assert bsr.bsr_matmul.launches == launches + 1
+    assert out.dtype == xdt and out.shape == (2, 6 * 128, f)
+    _close_to(out, ref, tol)
+    assert not out[0, 128:256].any()
+    names = _kernel_names(lambda: bsr.bsr_matmul(*args))
+    want = ("bsr_matmul_tc_kernel" if xdt == torch.bfloat16
+            else "bsr_matmul_f32_kernel")
+    assert any(want in k for k in names), names
+
+
+def test_b2_odd_width_bf16(device):
+    """bf16 B2 at an odd width: rows of x too narrow for cp.async (2-byte
+    copies) and unpaired output columns."""
+    vals, cols, mask, nc = _b2_blocks(torch.int8, seed=22)
+    x = torch.randn((2, nc, 7), generator=torch.Generator().manual_seed(7))
+    x = x.bfloat16()
+    out = bsr.bsr_matmul(*(t.to(device) for t in (
+        vals, cols, x, bsr.live_slot_counts(mask))))
+    _close_to(out, bsr.bsr_matmul_plain(vals, cols, x), 2.0 ** -6)
+
+
+def _lin_inputs(seed, n=512, f3=20, cc=1140):
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    x3 = torch.relu(rnd(1, n, f3)).bfloat16()
+    return x3, rnd(f3, cc) * 0.3, rnd(cc) * 0.1
+
+
+def test_b9b_bf16_matches_plain_b3_and_exact(device):
+    """bf16 B9b against its plain version at the TOL rule, against the exact
+    statistics at STATS_TOL, and against B3's kernel on the plain p, bit for
+    bit (B9b is B3's kernel forming p with lin_p's bits), with n_nodes
+    ending mid-tile and two tiles wholly past it; results repeat bit for
+    bit."""
+    x3, kc3, b3 = _lin_inputs(31)
+    nn_ = torch.tensor([380], dtype=torch.int32)
+    args = (x3, kc3, b3, nn_)
+    dev = [t.to(device) for t in args]
+    launches = ah.l2relu_stats_lin.launches
+    got = ah.l2relu_stats_lin(*dev)
+    assert ah.l2relu_stats_lin.launches == launches + 1
+    for o, r in zip(got, ah.l2relu_stats_lin_plain(*args)):
+        _close_to(o, r, 2.0 ** -6)
+    assert ah.stats_distance(got, ah.l2relu_stats_lin_reference(*dev)) \
+        <= ah.STATS_TOL
+    via_b3 = ah.l2relu_stats(ah.lin_p(*dev[:3]), dev[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, via_b3))
+    again = ah.l2relu_stats_lin(*dev)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_lin_p_routine_matches_plain(device):
+    """The one device routine that forms p for both of B9a's kernels (tc.cuh
+    lin_p_mma: its row norm and its product), through its test-only C
+    entry, against the plain version's p: the same bf16 value or one bf16
+    step from it (the dot sums in another order), and the same in all but
+    a few values."""
+    from cgcnet_tpu_torch.ops import _cuda
+
+    x3, kc3, b3 = _lin_inputs(32)
+    ref = ah.lin_p(x3, kc3, b3).float()
+    x3d, b3d = x3.to(device)[0].contiguous(), b3.to(device).bfloat16()
+    kc3t = ah.pad_lin_kernel(kc3.to(device))
+    rows, f3 = x3d.shape
+    cc = kc3.shape[1]
+    p = torch.empty((rows, cc), dtype=torch.bfloat16, device=device)
+    _cuda.launch("cgc_lin_p_probe", x3d.data_ptr(), kc3t.data_ptr(),
+                 b3d.data_ptr(), p.data_ptr(), rows, f3, cc, *kc3t.shape,
+                 device.index or 0, _cuda.stream_of(x3d))
+    got = p.float().cpu()
+    step = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert ((got - ref[0]).abs() <= step[0]).all()
+    assert (got == ref[0]).float().mean() > 0.99

@@ -182,8 +182,8 @@ def test_wrappers_take_plain_version_on_cpu(batch):
     )
     x = torch.randn(2, 1024, 40, generator=torch.Generator().manual_seed(0))
     torch.testing.assert_close(
-        tbsr.bsr_matmul(vals, bc, x), tbsr.bsr_matmul_plain(vals, bc, x),
-        rtol=0, atol=0,
+        tbsr.bsr_matmul(vals, bc, x, tbsr.live_slot_counts(bm)),
+        tbsr.bsr_matmul_plain(vals, bc, x), rtol=0, atol=0,
     )
     args = [_t(a) for a in _head_inputs(1)[:6]]
     s, _ = tah.assign_head_softmax_pre(*args)
@@ -208,8 +208,9 @@ def test_wrappers_refuse_other_devices(batch):
     vals = torch.empty((2, 8, 6, 128, 128), device="meta")
     bc = torch.empty((2, 8, 6), dtype=torch.int32, device="meta")
     x = torch.empty((2, 1024, 18), device="meta")
+    slots = torch.empty((2, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        tbsr.bsr_matmul(vals, bc, x)
+        tbsr.bsr_matmul(vals, bc, x, slots)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):

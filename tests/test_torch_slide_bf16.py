@@ -21,14 +21,23 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 import cgcnet_tpu.ops.pallas.assign_head as jah
 import cgcnet_tpu.ops.pallas.bsr_kernel as bk
+from cgcnet_tpu.config import ModelConfig as JaxModelConfig
+from cgcnet_tpu.core.graph import CellGraph as JaxCellGraph
+from cgcnet_tpu.nn.model import CGCNet as JaxPatch
+from cgcnet_tpu_torch.train.checkpoint import state_dict_from_flax
 
 from test_torch_slide_model import (
+    GRAD_FLOOR,
     GRAD_TOL,
     LOGIT_TOL,
     MEGA_JIT_FAULT,
     SMALL,
+    _models,
     _port_variant,
     _run_both,
     strip_slide,
@@ -67,6 +76,9 @@ def interpret_mode():
 
 
 _RESULT: dict = {}
+# the slide (rows, real nuclei, seed) and the bf16 configuration
+SLIDE = (2048, 2000, 4)
+BF16_CFG = dict(SMALL, max_num_nodes=5200, compute_dtype="bfloat16")
 
 
 def bf16_result():
@@ -79,8 +91,7 @@ def bf16_result():
 
     if _RESULT:
         return _RESULT
-    base = dict(SMALL, max_num_nodes=5200)
-    x, nbr, mask = strip_slide(2048, 2000, seed=4)
+    x, nbr, mask = strip_slide(*SLIDE)
     launches = []
     orig = tbsr.bsr_matmul_banded_plain
 
@@ -91,8 +102,7 @@ def bf16_result():
 
     tbsr.bsr_matmul_banded_plain = counting
     try:
-        r16 = _run_both(dict(base, compute_dtype="bfloat16"), x, nbr, mask,
-                        2000, True)
+        r16 = _run_both(BF16_CFG, x, nbr, mask, SLIDE[1], True)
     finally:
         tbsr.bsr_matmul_banded_plain = orig
     # the f32 reference: the port's f32 result on the same weights and
@@ -163,3 +173,45 @@ def test_bf16_zero_in_theory_gradients_within_floor():
                  r16["j_grads"][name].numpy(), g32.numpy(),
                  GRAD_TOL["atol"] + GRAD_TOL["rtol"]
                  * float(g32.abs().max()) + floor)
+
+
+def test_block_path_stage1_gradients_match_jax_patch_model():
+    """The stage-1 JK and embed1 gradients (MEGA_JIT_FAULT's: the jitted
+    JAX mega path's are wrong there, tests/test_torch_slide_model.py) of the
+    block path — B2's int8 transpose legs carry them — in f32 (the port's
+    f32 result on this slide, ``r32``) against JAX's patch CGCNet on the
+    same graph as a batch of one with the same weights (jitted; its
+    gradient is right where the mega path's is not) at the slide files'
+    gradient rule; the zero-in-theory jk1.att.bias with their floor. (In
+    bf16 the port's distance from f32 on these tensors reaches 2.4x JAX's
+    patch CGCNet's, past the file's ``no_worse`` form, and the port's own
+    patch path reaches 1.9x — the programs round bf16 in other places,
+    scripts/stage1_bf16_distances.py — so it is not held in bf16.)"""
+    r32 = bf16_result()["r32"]
+    _, variables, _, _ = _models(BF16_CFG, 1)
+    jcfg = JaxModelConfig(**dict(BF16_CFG, compute_dtype="float32",
+                                 use_pallas="never"))
+    x, nbr, mask = strip_slide(*SLIDE)
+    graph = JaxCellGraph(x=jnp.asarray(x)[None], nbr=jnp.asarray(nbr)[None],
+                         nbr_mask=jnp.asarray(mask)[None],
+                         n_nodes=jnp.asarray([SLIDE[1]], jnp.int32))
+
+    def jloss(params):
+        out, _ = JaxPatch(jcfg).apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            graph, train=True, mutable=["batch_stats"])
+        return -jax.nn.log_softmax(out[0])[bf16_result()["r16"]["label"]]
+
+    j_grads = state_dict_from_flax({"params": jax.device_get(
+        jax.jit(jax.grad(jloss))(variables["params"]))})
+    model_max = max(float(g.abs().max()) for g in j_grads.values())
+    names = [n for n in r32["t_grads"] if n.startswith(MEGA_JIT_FAULT)]
+    assert any(n.startswith("jk1.") for n in names) \
+        and any(n.startswith("embed1.") for n in names), names
+    assert bf16_result()["r16"]["tinp"].vals.dtype == torch.int8
+    for name in names:
+        gj = j_grads[name].numpy()
+        np.testing.assert_allclose(
+            r32["t_grads"][name].numpy(), gj, rtol=GRAD_TOL["rtol"],
+            atol=GRAD_TOL["atol"] * np.abs(gj).max() + GRAD_FLOOR * model_max,
+            err_msg=name)

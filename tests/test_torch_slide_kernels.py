@@ -263,9 +263,10 @@ def test_int8_build_blocks_matches_pallas():
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_int8_bsr_matmul_matches_pallas(dt):
     rng = np.random.default_rng(3)
-    blk_cols, _, vals = make_banded(rng)
+    blk_cols, blk_mask, vals = make_banded(rng)
     x = rng.normal(size=(1, 17 * T, 40)).astype(np.float32)
-    out = tbsr.bsr_matmul(_t(vals), _t(blk_cols), _t(x, getattr(torch, dt)))
+    out = tbsr.bsr_matmul(_t(vals), _t(blk_cols), _t(x, getattr(torch, dt)),
+                          tbsr.live_slot_counts(_t(blk_mask)))
     ref = jax.jit(bk.bsr_matmul)(jnp.asarray(vals), jnp.asarray(blk_cols),
                                  _jnp(x, getattr(jnp, dt)))
     _close(_np(out), ref, dt, 2e-4)

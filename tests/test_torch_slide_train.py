@@ -134,7 +134,8 @@ def test_bsr_local_matmul_matches_jax():
         hlt = torch.from_numpy(halo).to(tdt).requires_grad_(True)
         out_t = tell.bsr_local_matmul(
             tinp.vals, tinp.blk_cols[None], tinp.win_base, tinp.vals_t,
-            tinp.blk_cols_t[None], tinp.win_base_t, ht, hlt)
+            tinp.blk_cols_t[None], tinp.win_base_t, ht, hlt,
+            slots=tinp.slots[None], slots_t=tinp.slots_t[None])
         dh_t, dhalo_t = torch.autograd.grad(out_t, (ht, hlt),
                                             torch.from_numpy(g).to(tdt))
         for a, b in ((out_t, out_j), (dh_t, dh_j), (dhalo_t, dhalo_j)):

@@ -177,7 +177,8 @@ def test_bsr_matmul_precomp_matches_jax(batch):
     (dx,) = vjp(jnp.asarray(g))
     tx = _t(x, grad=True)
     tout = bsr_matmul_precomp(adj.vals, adj.blk_cols, adj.vals_t,
-                              adj.blk_cols_t, adj.scale, adj.self_w, tx)
+                              adj.blk_cols_t, adj.scale, adj.self_w, tx,
+                              adj.slots, adj.slots_t)
     torch.sum(tout * _t(g)).backward()
     np.testing.assert_allclose(_np(tout), np.asarray(out), atol=1e-4)
     np.testing.assert_allclose(_np(tx.grad), np.asarray(dx), atol=1e-4)
