@@ -37,7 +37,8 @@
 //      (B4; B9a in f32, p from x3 staged in shared memory and kc3);
 //      rnorm_lin_tc_kernel (B9a in bf16): p by mma.sync through
 //      tc.cuh's lin_p_mma, the routine of the product too, so norm and
-//      product read the same p;
+//      product read the same p, and the norm by tc.cuh's lin_rnorm, the
+//      routine of B9b's statistics too;
 //   2. the product, logits + const -> an f32 buffer; tiles wholly past
 //      n_nodes are skipped.
 //      bf16: gemm_tc_kernel on the tensor cores. A 128 x 192 output tile per
@@ -470,15 +471,15 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_tc_kernel(
 
 // B9a's row norm on the tensor cores: p for a tile of 128 rows x all of C
 // by mma.sync through lin_p_mma (tc.cuh), as gemm_tc_kernel forms it, so
-// the norm and the product read the same p; f32 sum of squares per row.
-// kc3t ([round_up(C, 64), 32], kc3^T padded) is staged in shared memory.
+// the norm and the product read the same p; the norm by tc.cuh's lin_rnorm,
+// B9b's routine too. kc3t ([round_up(C, 64), 32], kc3^T padded) is staged
+// in shared memory.
 __global__ void __launch_bounds__(kThreads) rnorm_lin_tc_kernel(
     const bf16* __restrict__ x3, const bf16* __restrict__ kc3t,
     const bf16* __restrict__ b3, const int* __restrict__ n_nodes,
     float* __restrict__ rnorm, int N, int F3, int C) {
   using namespace cgc::tc;
   extern __shared__ __align__(16) uint8_t smem_k[];
-  const bf16* s_k = reinterpret_cast<const bf16*>(smem_k);
   const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
   const long long b = row0 / N;
   if (row0 - b * N >= n_nodes[b]) return;  // every row of the tile is padding
@@ -496,40 +497,24 @@ __global__ void __launch_bounds__(kThreads) rnorm_lin_tc_kernel(
   lin_x3_frags(xf, x3, ra, F3, tq);
   cp_async_wait<0>();
   __syncthreads();
-  float ss0 = 0.f, ss1 = 0.f;
-  for (int jn = 0; jn < Kc / 8; ++jn) {
-    const int col = 8 * jn + 2 * tq;
-    float p[4];
-    lin_p_mma(p, xf, s_k + (8 * jn + g) * (kLStride / 2) + 2 * tq,
-              col < C ? cgc::to_f32(b3[col]) : 0.f,
-              col + 1 < C ? cgc::to_f32(b3[col + 1]) : 0.f);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (col + e >= C) continue;
-      ss0 = fmaf(p[e], p[e], ss0);
-      ss1 = fmaf(p[2 + e], p[2 + e], ss1);
-    }
-  }
-  // the four lanes of a row hold its column quarters
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    ss0 += __shfl_xor_sync(0xffffffffu, ss0, o);
-    ss1 += __shfl_xor_sync(0xffffffffu, ss1, o);
-  }
+  float rn0, rn1;
+  lin_rnorm(rn0, rn1, xf, reinterpret_cast<const bf16*>(smem_k),
+            kLStride / 2, b3, C, lane);
   if (tq == 0) {
-    rnorm[ra] = 1.f / fmaxf(sqrtf(ss0), 1e-12f);
-    rnorm[ra + 8] = 1.f / fmaxf(sqrtf(ss1), 1e-12f);
+    rnorm[ra] = rn0;
+    rnorm[ra + 8] = rn1;
   }
 }
 
-// Test-only (tests/test_torch_cuda.py): p [rows, C] in bf16 as lin_p_mma
-// forms it for B9a, one warp per 16 rows, kc3t read from device memory.
-// No path of the package calls it.
+// Test-only (tests/test_torch_cuda.py, scripts/slide_hold_probe.py): p
+// [rows, C] in bf16 as lin_p_mma forms it for B9a and B9b, and each row's
+// norm as lin_rnorm forms it (rnorm [rows] f32), one warp per 16 rows, kc3t
+// read from device memory. No path of the package calls it.
 __global__ void __launch_bounds__(kThreads)
     lin_p_probe_kernel(const bf16* __restrict__ x3,
                        const bf16* __restrict__ kc3t,
                        const bf16* __restrict__ b3, bf16* __restrict__ p,
-                       int F3, int C) {
+                       float* __restrict__ rnorm, int F3, int C) {
   using namespace cgc::tc;
   const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
   const long long ra =
@@ -549,6 +534,12 @@ __global__ void __launch_bounds__(kThreads)
       const int cc = col + i % 2;
       if (cc < C) p[(ra + 8 * (i / 2)) * C + cc] = __float2bfloat16(v[i]);
     }
+  }
+  float rn0, rn1;
+  lin_rnorm(rn0, rn1, xf, kc3t, kF3Pad, b3, C, lane);
+  if (tq == 0) {
+    rnorm[ra] = rn0;
+    rnorm[ra + 8] = rn1;
   }
 }
 
@@ -873,14 +864,14 @@ extern "C" int cgc_assign_head(const void* x12, const void* h3a,
   return dispatch<false, false>(a, dtype, device, stream);
 }
 
-// Test-only: p [rows, C] bf16 from x3 [rows, F3], kc3t ([kt_rows, kt_cols]
-// = [round_up(C, 64), 32], pad_lin_kernel) and b3 through lin_p_mma, the
-// routine B9a forms p with; rows a multiple of 128. The package never calls
-// it.
+// Test-only: p [rows, C] bf16 and rnorm [rows] f32 from x3 [rows, F3],
+// kc3t ([kt_rows, kt_cols] = [round_up(C, 64), 32], pad_lin_kernel) and b3
+// through lin_p_mma and lin_rnorm, the routines B9a and B9b form p and its
+// row norm with; rows a multiple of 128. The package never calls it.
 extern "C" int cgc_lin_p_probe(const void* x3, const void* kc3t,
-                               const void* b3, void* p, int rows, int F3,
-                               int C, int kt_rows, int kt_cols, int device,
-                               void* stream) {
+                               const void* b3, void* p, void* rnorm, int rows,
+                               int F3, int C, int kt_rows, int kt_cols,
+                               int device, void* stream) {
   HeadArgs a{};
   a.kc3t = kc3t;
   a.F3 = F3;
@@ -894,7 +885,8 @@ extern "C" int cgc_lin_p_probe(const void* x3, const void* kc3t,
     lin_p_probe_kernel<<<rows / kBM, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(x3), static_cast<const bf16*>(kc3t),
-        static_cast<const bf16*>(b3), static_cast<bf16*>(p), F3, C);
+        static_cast<const bf16*>(b3), static_cast<bf16*>(p),
+        static_cast<float*>(rnorm), F3, C);
   return cudaGetLastError();
 }
 

@@ -2,9 +2,10 @@
 // B9a's product): asynchronous copies into shared memory, the warpgroup
 // product wgmma m64n192k16 with A in registers and B in 128-byte-swizzled
 // shared memory, its shared-memory descriptor, and the warp-level
-// mma.sync m16n8k16 (B9a's 20-deep product forming p, B2's block
-// products), and the one routine that forms conv3's lin output p on the
-// tensor cores for both of B9a's kernels (``lin_p_mma``).
+// mma.sync m16n8k16 (the 20-deep product forming p, B2's block
+// products), and the routines that form conv3's lin output p on the
+// tensor cores (``lin_p_mma``) and its row norm (``lin_rnorm``) for B9a's
+// two kernels and for B9b.
 //
 // Fragment layouts (g = lane / 4, t = lane % 4; warp w of a warpgroup owns
 // rows 16w .. 16w + 15 of the warpgroup's 64):
@@ -197,9 +198,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
 // kF3Pad columns with zeros, are the A operand (two k-steps of 16), kc3^T
 // ([round_up(C, 64), kF3Pad], zero-padded: ops/assign_head.py
 // pad_lin_kernel) the B operand; the f32 accumulator of each 16 x 8 tile is
-// rounded, the bias added and rounded again. B9a's row norm and its
-// product form p through these two routines, so both see the same p, bit
-// for bit.
+// rounded, the bias added and rounded again. B9a's row norm and product
+// and B9b's statistics form p through these routines, so all see the same
+// p, bit for bit.
 constexpr int kF3Pad = 32;               // x3 width: two k-steps
 constexpr int kLStride = kF3Pad * 2 + 16;  // a kc3^T row staged in shared
                                            //   memory: 80 bytes
@@ -224,26 +225,85 @@ __device__ __forceinline__ void lin_x3_frags(uint32_t (&xf)[2][4],
   }
 }
 
-// p of one warp's 16 rows x 8 columns: ``brow`` points at column 2*tq of
-// the kc3^T row n0 + g (n0: the tile's first column; any row stride, shared
-// or global memory), ``bb0`` / ``bb1`` are b3 at columns n0 + 2tq and + 1
-// (0 past C). p[2h + e] is row g + 8h, column n0 + 2tq + e — the layout of
-// the mma.sync accumulator.
-__device__ __forceinline__ void lin_p_mma(float (&p)[4],
-                                          const uint32_t (&xf)[2][4],
-                                          const __nv_bfloat16* brow,
-                                          float bb0, float bb1) {
+// The B operand of one 16 x 8 tile of p: the kc3^T row at ``brow``
+// (column 2*tq of row n0 + g; any row stride, shared or global memory), as
+// the fragments of both k-steps.
+__device__ __forceinline__ void lin_b_frags(
+    uint32_t (&bf)[4], const __nv_bfloat16* __restrict__ brow) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    bf[2 * kk] = *reinterpret_cast<const uint32_t*>(brow + 16 * kk);
+    bf[2 * kk + 1] = *reinterpret_cast<const uint32_t*>(brow + 16 * kk + 8);
+  }
+}
+
+// p of one warp's 16 rows x 8 columns from the x3 fragments ``xf`` and the
+// kc3^T fragments ``bf`` (lin_b_frags); ``bb0`` / ``bb1`` are b3 at columns
+// n0 + 2tq and + 1 (0 past C). p[2h + e] is row g + 8h, column n0 + 2tq + e
+// — the layout of the mma.sync accumulator.
+__device__ __forceinline__ void lin_p_frag(float (&p)[4],
+                                           const uint32_t (&xf)[2][4],
+                                           const uint32_t (&bf)[4], float bb0,
+                                           float bb1) {
   float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk)
-    mma_m16n8k16(c, xf[kk],
-                 *reinterpret_cast<const uint32_t*>(brow + 16 * kk),
-                 *reinterpret_cast<const uint32_t*>(brow + 16 * kk + 8));
+    mma_m16n8k16(c, xf[kk], bf[2 * kk], bf[2 * kk + 1]);
+  // each rounding to bf16 (round to nearest even) two values at a time
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float r = __bfloat162float(__float2bfloat16(c[i]));
-    p[i] = __bfloat162float(__float2bfloat16(r + (i % 2 ? bb1 : bb0)));
+  for (int h = 0; h < 2; ++h) {
+    const float2 r = unpack_bf16(pack_bf16(c[2 * h], c[2 * h + 1]));
+    const float2 q = unpack_bf16(pack_bf16(r.x + bb0, r.y + bb1));
+    p[2 * h] = q.x;
+    p[2 * h + 1] = q.y;
   }
+}
+
+// lin_b_frags then lin_p_frag: p of one 16 x 8 tile with its kc3^T row
+// read at ``brow``.
+__device__ __forceinline__ void lin_p_mma(
+    float (&p)[4], const uint32_t (&xf)[2][4],
+    const __nv_bfloat16* __restrict__ brow, float bb0, float bb1) {
+  uint32_t bf[4];
+  lin_b_frags(bf, brow);
+  lin_p_frag(p, xf, bf, bb0, bb1);
+}
+
+// The row norm of B9a and B9b: rn = 1 / max(||p||, 1e-12) of rows g and
+// g + 8 of the 16-row group whose x3 fragments are ``xf``, p formed by
+// lin_p_mma over the columns [0, C) from kc3^T (``kc3t``, rows ``stride``
+// elements apart; shared or global memory) and b3. Each lane sums the
+// squares of its two columns of every 8-column tile, tiles in ascending
+// order, as one fmaf chain per row; the row's four lanes (tq) then add
+// their sums by xor-shuffle. Every lane returns its rows' rn. The
+// statistics (B9b) and the head (B9a) normalize by this one routine, so
+// they see the same h, bit for bit.
+__device__ __forceinline__ void lin_rnorm(
+    float& rn0, float& rn1, const uint32_t (&xf)[2][4],
+    const __nv_bfloat16* __restrict__ kc3t, int stride,
+    const __nv_bfloat16* __restrict__ b3, int C, int lane) {
+  const int g = lane / 4, tq = lane % 4;
+  float ss0 = 0.f, ss1 = 0.f;
+  for (int jn = 0; jn < (C + 7) / 8; ++jn) {
+    const int col = 8 * jn + 2 * tq;
+    float p[4];
+    lin_p_mma(p, xf, kc3t + (8 * jn + g) * stride + 2 * tq,
+              col < C ? __bfloat162float(b3[col]) : 0.f,
+              col + 1 < C ? __bfloat162float(b3[col + 1]) : 0.f);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (col + e >= C) continue;
+      ss0 = fmaf(p[e], p[e], ss0);
+      ss1 = fmaf(p[2 + e], p[2 + e], ss1);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    ss0 += __shfl_xor_sync(0xffffffffu, ss0, o);
+    ss1 += __shfl_xor_sync(0xffffffffu, ss1, o);
+  }
+  rn0 = 1.f / fmaxf(sqrtf(ss0), 1e-12f);
+  rn1 = 1.f / fmaxf(sqrtf(ss1), 1e-12f);
 }
 
 // Largest copy width (16, 8 or 4 bytes) that every bf16 row of ``cols``

@@ -65,12 +65,12 @@ _SIGNATURES = {
     "cgc_assign_head_pre_lin": [_P] * 13 + [_I] * 11 + [_P],
     # p, n_nodes, partial, out, B, N, C, tile_rows, dtype, device, stream
     "cgc_l2relu_stats": [_P] * 4 + [_I] * 6 + [_P],
-    # x3, kc3, b3, n_nodes, partial, out, B, N, F3, C, tile_rows, dtype,
-    # device, stream
-    "cgc_l2relu_stats_lin": [_P] * 6 + [_I] * 7 + [_P],
-    # test only: x3, kc3t, b3, p, rows, F3, C, kc3t's rows and columns,
-    # device, stream
-    "cgc_lin_p_probe": [_P] * 4 + [_I] * 6 + [_P],
+    # x3, kc3 (f32), kc3t (bf16: kc3^T padded), b3, n_nodes, partial, out,
+    # B, N, F3, C, kc3t's rows and columns, tile_rows, dtype, device, stream
+    "cgc_l2relu_stats_lin": [_P] * 7 + [_I] * 9 + [_P],
+    # test only: x3, kc3t, b3, p, rnorm, rows, F3, C, kc3t's rows and
+    # columns, device, stream
+    "cgc_lin_p_probe": [_P] * 5 + [_I] * 6 + [_P],
     # p, dh, u, w, n_nodes, dp, B, N, C, dtype, device, stream
     "cgc_assign_tail_bwd": [_P] * 6 + [_I] * 5 + [_P],
 }

@@ -50,13 +50,21 @@ Phases, each fatal on failure (exit code != 0):
 9. slide training: 12 steps of ``make_slide_train_step`` at 100k, bf16
    (B2 = 5, B3 = 1, B4 = 1 with S lane-padded to 1152, B8 = 2 — one with
    the row accumulator and split outputs —, B5 = 1 per step), finite
-   loss, parameters and running statistics changed, one step's gradients
-   against the plain versions on the card; one ``cli.slide
-   --train-epochs 2 --out`` round trip, the written file served again;
+   loss, parameters and running statistics changed, one step's loss and
+   gradients against the plain versions on the card (``step_hold``: the
+   plain side keeps the kernels of ``assign_head.STATS_HELD``, B3 and B9b,
+   so both sides read the same BN statistics, which the statistics hold
+   below judges on their own; the gradients are held on the plain steps
+   replayed with the kernel step's max-readout routing, so a near-tied
+   readout that swaps nodes on the last bits does not move them, and a
+   node moved further than ``READOUT_STEPS`` bf16 steps, or more than
+   ``READOUT_SHARE`` of a readout's columns moved, fails the hold); one
+   ``cli.slide --train-epochs 2 --out`` round trip, the written file served
+   again;
 10. capacity path: 6 steps with ``model.assign_tail_chunk=65536
    mesh.remat_stage1=true`` (chunks of 65536 and 34816 rows; B9b = 1, B9a
-   = 5, B5 = 2, B8 = 2, B2 = 8 per step), gradients against the plain
-   versions on the card; then an f32 forward and step of an 8192-nuclei
+   = 5, B5 = 2, B8 = 2, B2 = 8 per step), the step hold as in phase 9;
+   then an f32 forward and step of an 8192-nuclei
    slide on the card against the CPU (block tables built by hand for both);
    then the statistics hold: B3's and B9b's column sums and sums of squares
    on the slide's own bf16 inputs against the exact (f64) statistics of the
@@ -76,6 +84,10 @@ Phases, each fatal on failure (exit code != 0):
    time of each of the head's launches (``split_ms``: row norm, product,
    softmax, and the padded weight copies as ``other``) from a
    torch.profiler trace.
+
+The statistics hold runs after the step holds of phases 9 and 10 that
+rest on it (it reads inputs those phases capture): a run whose statistics
+fail it fails all the same, whatever the step holds said before.
 
 The second-to-last lines are one JSON object of per-kernel numbers and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -180,6 +192,17 @@ BF16_WIDEN = 4.0
 # gradient on the capacity path, where its plain bf16 and f32 values
 # happened to agree to 2.4e-7). Every other tensor keeps GRAD_FLOOR
 BF16_FLOOR = 2.0 ** -9
+# the step holds' replay of the kernel step's max readouts on the plain
+# steps (``step_hold``): a readout column whose own maximum lies elsewhere
+# than the kernel step's node is a near-tie only when the plain step's value
+# at that node lies within READOUT_STEPS bf16 steps of its own maximum, and
+# at most READOUT_SHARE of a readout's columns may move. On an H100 80GB
+# HBM3 right computations (every kernel; the held statistics nudged by
+# 1e-7) moved nodes up to 9 steps on the stage-3 readout against the plain
+# bf16 step and 7.5 against the f32 one, and 4 of the stage-1 readout's 20
+# columns against the f32 step
+READOUT_STEPS = 16.0
+READOUT_SHARE = 0.5
 # B8, B9a, B9b as B2, B4 and B3: f32 B8 1e-4 (sums over 128*M block
 # columns in another order), B9a and B9b 1e-5 (the F3-term dot forming p
 # is rounded alike, then B4's and B3's sums); bf16 2^-6
@@ -254,16 +277,15 @@ def grads_of(model, graph) -> tuple[float, dict]:
                          for n, p in model.named_parameters()}
 
 
-@contextlib.contextmanager
-def sites_replaced(replacement):
-    """For the duration, each site where the model calls a kernel wrapper
-    calls ``replacement(kernel id, wrapper, plain version)`` instead."""
+def kernel_sites() -> list:
+    """(module, name, kernel id, plain version) of every site where the
+    model calls a kernel wrapper through a module's global name."""
     from cgcnet_tpu_torch.nn import model as model_mod
     from cgcnet_tpu_torch.ops import assign_head as ah
     from cgcnet_tpu_torch.ops import bsr, ell
     from cgcnet_tpu_torch.parallel import mega_model
 
-    sites = [
+    return [
         (model_mod, "bsr_build_blocks", "B1", bsr.bsr_build_blocks_plain),
         (mega_model, "bsr_build_blocks", "B1", bsr.bsr_build_blocks_plain),
         (ell, "bsr_matmul", "B2", bsr.bsr_matmul_plain),
@@ -278,6 +300,13 @@ def sites_replaced(replacement):
          ah.assign_head_softmax_pre_lin_plain),
         (ah, "l2relu_stats_lin", "B9b", ah.l2relu_stats_lin_plain),
     ]
+
+
+@contextlib.contextmanager
+def sites_replaced(replacement):
+    """For the duration, each site where the model calls a kernel wrapper
+    calls ``replacement(kernel id, wrapper, plain version)`` instead."""
+    sites = kernel_sites()
     originals = [getattr(mod, name) for mod, name, _, _ in sites]
     for (mod, name, key, plain), orig in zip(sites, originals):
         setattr(mod, name, replacement(key, orig, plain))
@@ -286,6 +315,96 @@ def sites_replaced(replacement):
     finally:
         for (mod, name, _, _), orig in zip(sites, originals):
             setattr(mod, name, orig)
+
+
+def all_plain(key, wrapper, plain):
+    """Every site its plain version."""
+    return plain
+
+
+def stats_shared(key, wrapper, plain):
+    """The step holds' plain bf16 side: the kernels whose statistics the
+    statistics hold judges (``assign_head.STATS_HELD``: B3, B9b) stay the
+    kernel, every other site its plain version."""
+    from cgcnet_tpu_torch.ops import assign_head as ah
+
+    return wrapper if key in ah.STATS_HELD else plain
+
+
+def bf16_steps(gap, scale):
+    """``gap`` in bf16 steps at ``scale`` (elementwise): a step is 2^-7 of
+    the power of two at or below |scale|."""
+    import torch
+
+    exp = torch.frexp(scale.abs().float()).exponent
+    return gap.float() / torch.ldexp(torch.ones_like(gap.float()), exp - 8)
+
+
+def readout_routing():
+    """A torch function mode over the model's max readouts (``torch.amax``
+    over the nodes of a [nodes, F] tensor). Entered as it is, it records,
+    per readout in call order, where each column's maximum lies (``masks``);
+    inside ``replay()`` each readout instead takes the mean of x at the
+    recorded positions — the maximum, on the recording side — whose gradient
+    goes to those positions, split evenly among ties, as amax's does. So a
+    step replayed this way routes its readouts' gradients to the nodes the
+    recorded step chose, whatever its own last bits would have chosen.
+    Each replay appends to ``moves`` one (columns, columns moved, worst gap)
+    per readout: a column moved when its own maximum lies elsewhere than
+    the recorded one, and its gap is its own maximum less its least value
+    at the recorded nodes, in bf16 steps (``bf16_steps``) of the larger of
+    the two."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class Routing(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.masks, self.moves, self.replaying, self.i = [], [], False, 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            dim = kwargs.get("dim", args[1] if len(args) > 1 else None)
+            if not (func is torch.amax and dim in (0, (0,), [0])
+                    and not kwargs.get("keepdim") and len(args) <= 2
+                    and args[0].dim() == 2 and args[0].shape[0] > 1):
+                return func(*args, **kwargs)
+            x = args[0]
+            if not self.replaying:
+                out = func(*args, **kwargs)
+                self.masks.append(x.detach() == out.detach()[None])
+                return out
+            if self.i >= len(self.masks):
+                raise SystemExit("readout routing: more readouts replayed "
+                                 "than recorded")
+            mask = self.masks[self.i]
+            self.i += 1
+            xd = x.detach()
+            top = torch.amax(xd, 0)
+            moved = ((xd == top[None]) != mask).any(0)
+            low = torch.where(mask, xd, torch.full_like(xd, float("inf")))
+            low = torch.amin(low, 0)
+            gap = bf16_steps(top - low, torch.maximum(top.abs(), low.abs()))
+            self.moves[-1].append((
+                mask.shape[1], int(moved.sum()),
+                float(gap[moved].max()) if moved.any() else 0.0))
+            w = mask.float()
+            return (x.float() * (w / w.sum(0))).sum(0).to(x.dtype)
+
+        @contextlib.contextmanager
+        def replay(self):
+            self.replaying, self.i = True, 0
+            self.moves.append([])
+            try:
+                with self:
+                    yield
+            finally:
+                self.replaying = False
+            if self.i != len(self.masks):
+                raise SystemExit(f"readout routing: {self.i} readouts "
+                                 f"replayed, {len(self.masks)} recorded")
+
+    return Routing()
 
 
 def capture_inputs(model, graph) -> dict:
@@ -791,7 +910,7 @@ def grad_hold(cfg, device, graph, witnessed: bool) -> None:
     if not np.isclose(loss_gpu, loss_cpu, atol=LOGIT_ATOL, rtol=LOGIT_RTOL):
         raise SystemExit(f"card loss {loss_gpu} != CPU {loss_cpu}")
     if witnessed:
-        with sites_replaced(lambda key, wrapper, plain: plain):
+        with sites_replaced(all_plain):
             g_plain = grads_of(gpu, graph)[1]
         kernels = ratios(g_gpu, g_plain)
         wk = worst(kernels)
@@ -1085,11 +1204,14 @@ def zero_in_theory(name: str) -> bool:
     return name.startswith("jk") and name.endswith(".att.bias")
 
 
-def grads_close(what, g_ker, g_ref, rel, widen=None, zero_floor=None) -> None:
+def grads_close(what, g_ker, g_ref, rel, widen=None, zero_floor=None,
+                strict=True) -> tuple[str, float]:
     """Each gradient tensor within ``rel`` of its own max|grad| plus
     GRAD_FLOOR of the model's largest gradient (GRAD_REL's rule), plus
     ``widen[name]`` where given; a ``zero_in_theory`` tensor's floor is
-    ``zero_floor`` of the model's largest where given."""
+    ``zero_floor`` of the model's largest where given. Returns the worst
+    tensor and its difference as a fraction of its tolerance; fails when
+    that is above 1 or a gradient is not finite, unless not ``strict``."""
     if set(g_ker) != set(g_ref):
         raise SystemExit(f"{what}: gradients of different parameters")
     top = max(g.abs().max().item() for g in g_ref.values())
@@ -1113,11 +1235,119 @@ def grads_close(what, g_ker, g_ref, rel, widen=None, zero_floor=None) -> None:
         + ", ".join(f"{n} (diff {diff[n]:.3e}, floor {floor[n]:.3e})"
                     for n in by_floor[:6])
         + (", ..." if len(by_floor) > 6 else "") + ")")
-    if not ratio[w] <= 1.0:
+    if strict and not ratio[w] <= 1.0:
         raise SystemExit(f"{what}: gradient {w} out of tolerance")
     bad = [n for n, g in g_ker.items() if not torch_isfinite(g)]
-    if bad:
+    if strict and bad:
         raise SystemExit(f"{what}: gradients not finite: {bad}")
+    return w, ratio[w]
+
+
+def every_kernel(key, wrapper, plain):
+    """Every site its kernel."""
+    return wrapper
+
+
+def step_hold(model, cfg_, inputs, remat, what, kernel=every_kernel,
+              plain=stats_shared) -> dict:
+    """One slide step's loss and gradients, kernels (``kernel`` routes the
+    sites) against the plain versions on the card (``plain`` routes the
+    plain bf16 side: by default it keeps the STATS_HELD kernels, so both
+    sides read the same BN statistics, which the statistics hold judges;
+    the f32 side is all plain), at GRAD_REL's rule with the bf16 floor,
+    widened by BF16_WIDEN x the distance between the plain bf16 step and
+    the plain f32 step (two right computations of the step; the GIN
+    precedent of phase 6); the bf16 floor for the zero-in-theory gradients
+    only. The loss is held so. The gradients are held on the two plain
+    steps replayed with the kernel step's readout routing
+    (``readout_routing``): a max readout whose near-tied nodes swap on the
+    last bits moves its gradient to another node, a jump no rounding rule
+    can hold (on the H100 one or two of the stage-3 readout's 20 columns
+    swap between right computations); the distance between the replayed
+    plain bf16 and f32 steps widens the rule. The replay is bounded: on each
+    replayed side a moved column's gap must be within READOUT_STEPS bf16
+    steps and a readout may move at most READOUT_SHARE of its columns, so a
+    kernel that moves a readout's node further than rounding does fails.
+    The gradients as each side routes its own readouts are logged beside.
+    Returns the loss difference, the routed and unrouted worst gradients
+    as fractions of their tolerances, the worst readout gap and moved
+    share, and whether the kernel step's gradients are finite;
+    ``require_step`` fails on them."""
+    from cgcnet_tpu_torch.ops.assign_head import STATS_HELD
+
+    def grads(replace, c, mode=None):
+        with sites_replaced(replace), (mode if mode is not None
+                                       else contextlib.nullcontext()):
+            return slide_grads(model, c, inputs, remat)
+
+    cfg_32 = cfg_.apply_overrides(["model.compute_dtype=float32"])
+    routing = readout_routing()
+    g_ker = grads(kernel, cfg_, routing)
+    g_plain, g_32 = grads(plain, cfg_), grads(all_plain, cfg_32)
+    lim = (LOGIT_ATOL + LOGIT_RTOL * abs(g_plain[0])
+           + BF16_WIDEN * abs(g_plain[0] - g_32[0]))
+    loss_frac = abs(g_ker[0] - g_plain[0]) / lim
+    how = (f"sharing the statistics of {', '.join(STATS_HELD)} with the "
+           "kernel side" if plain is stats_shared
+           else f"sites routed by {plain.__name__}")
+    log(f"  {what} one step: loss {g_ker[0]:.6f} (kernels) vs "
+        f"{g_plain[0]:.6f} (plain versions on the card, {how}), f32 plain "
+        f"{g_32[0]:.6f}; tol {lim:.3e} ({loss_frac:.3f} of it)")
+    spread = {n: BF16_WIDEN * (g_plain[1][n] - g_32[1][n]).abs().max()
+              .item() for n in g_plain[1]}
+    unrouted = grads_close(
+        f"{what} step gradients, readouts as each side routes them (logged, "
+        "not held)", g_ker[1], g_plain[1], GRAD_REL, widen=spread,
+        zero_floor=BF16_FLOOR, strict=False)
+    g_plain = grads(plain, cfg_, routing.replay())
+    g_32 = grads(all_plain, cfg_32, routing.replay())
+    steps = share = 0.0
+    for side, moves in zip(("bf16", "f32"), routing.moves):
+        log(f"  {what}: the plain {side} step's readouts routed as the "
+            "kernel step's: " + "; ".join(
+                f"readout {i}: {n} of {cols} columns moved, worst gap "
+                f"{gap:.2f} bf16 steps" for i, (cols, n, gap)
+                in enumerate(moves))
+            + f" (limits {READOUT_STEPS:g} steps, {READOUT_SHARE:g} of the "
+            "columns)")
+        steps = max([steps] + [gap for _, _, gap in moves])
+        share = max([share] + [n / cols for cols, n, _ in moves])
+    log(f"  {what}: replayed losses {g_plain[0]:.6f} (bf16), "
+        f"{g_32[0]:.6f} (f32)")
+    spread = {n: BF16_WIDEN * (g_plain[1][n] - g_32[1][n]).abs().max()
+              .item() for n in g_plain[1]}
+    worst = grads_close(
+        f"{what} step gradients, kernels vs plain versions on the card "
+        "(readouts routed as the kernel step's)", g_ker[1], g_plain[1],
+        GRAD_REL, widen=spread, zero_floor=BF16_FLOOR, strict=False)
+    return {"loss": loss_frac, "worst": worst[0], "grad": worst[1],
+            "unrouted": unrouted[1], "steps": steps, "share": share,
+            "finite": all(torch_isfinite(g) for g in g_ker[1].values()),
+            "g_ker": g_ker[1], "spread": spread}
+
+
+def step_verdict(r: dict) -> list:
+    """What fails in a ``step_hold`` result: each entry names a broken
+    limit; empty when it passes."""
+    bad = []
+    if not r["loss"] <= 1.0:
+        bad.append(f"loss at {r['loss']:.3f} of its tolerance")
+    if not r["grad"] <= 1.0:
+        bad.append(f"gradient {r['worst']} at {r['grad']:.3f} of its "
+                   "tolerance")
+    if not r["steps"] <= READOUT_STEPS:
+        bad.append(f"a readout column moved {r['steps']:.2f} bf16 steps")
+    if not r["share"] <= READOUT_SHARE:
+        bad.append(f"a readout moved {r['share']:.3f} of its columns")
+    if not r["finite"]:
+        bad.append("gradients not finite")
+    return bad
+
+
+def require_step(r: dict, what: str) -> None:
+    bad = step_verdict(r)
+    if bad:
+        raise SystemExit(f"{what} step hold: " + "; ".join(bad))
 
 
 def torch_isfinite(t) -> bool:
@@ -1212,7 +1442,7 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
     with torch.no_grad():
         fwd_ms = time_ms(lambda: mega_forward(model, cfg.model, inputs),
                          reps=5, warmup=1)
-        with sites_replaced(lambda key, wrapper, plain: plain):
+        with sites_replaced(all_plain):
             plain_logits = mega_forward(model, cfg.model, inputs)
             plain32 = mega_forward(model, cfg32.model, inputs)
     err = (logits - plain_logits).abs().max().item()
@@ -1229,34 +1459,9 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
         raise SystemExit("slide logits: kernels vs plain versions")
     out["slide_forward_ms"] = fwd_ms
 
-    def step_hold(cfg_, remat, what):
-        """One step's loss and gradients, kernels against the plain
-        versions on the card at GRAD_REL's rule with the bf16 floor, widened
-        by BF16_WIDEN x the distance between the plain bf16 step and the
-        plain f32 step (two right computations of the step; the GIN
-        precedent of phase 6); the bf16 floor for the zero-in-theory
-        gradients only."""
-        g_ker = slide_grads(model, cfg_, inputs, remat)
-        with sites_replaced(lambda key, wrapper, plain: plain):
-            g_plain = slide_grads(model, cfg_, inputs, remat)
-            g_32 = slide_grads(model, cfg_.apply_overrides(
-                ["model.compute_dtype=float32"]), inputs, remat)
-        spread = {n: BF16_WIDEN * (g_plain[1][n] - g_32[1][n]).abs().max()
-                  .item() for n in g_plain[1]}
-        lim = (LOGIT_ATOL + LOGIT_RTOL * abs(g_plain[0])
-               + BF16_WIDEN * abs(g_plain[0] - g_32[0]))
-        log(f"  {what} one step: loss {g_ker[0]:.6f} (kernels) vs "
-            f"{g_plain[0]:.6f} (plain versions on the card), f32 plain "
-            f"{g_32[0]:.6f}; tol {lim:.3e}")
-        if not abs(g_ker[0] - g_plain[0]) <= lim:
-            raise SystemExit(f"{what} loss: kernels vs plain versions")
-        grads_close(f"{what} step gradients, kernels vs plain versions on "
-                    "the card", g_ker[1], g_plain[1], GRAD_REL, widen=spread,
-                    zero_floor=BF16_FLOOR)
-
     # ---- phase 9: training ----
     log("phase 9: slide training (100k nuclei, bf16, no chunking)")
-    step_hold(cfg, False, "slide")
+    require_step(step_hold(model, cfg, inputs, False, "slide"), "slide")
 
     def train_steps(cfg_, n_steps, per_step, remat_stage1, what):
         m = slide_model(cfg_, ckpt, device).train()
@@ -1339,7 +1544,8 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
             or plan[1] != 1 or not plan[2]:
         raise SystemExit(f"chunk plan {plan}: not one full chunk and a "
                          "remainder")
-    step_hold(cap_cfg, True, "capacity")
+    require_step(step_hold(model, cap_cfg, inputs, True, "capacity"),
+                 "capacity")
     torch.cuda.reset_peak_memory_stats()
     paths["slide_capacity"], out["capacity_step_ms"] = train_steps(
         cap_cfg, SLIDE_CAP_STEPS, SLIDE_CAP_PER_STEP, True, "capacity")
@@ -1679,9 +1885,9 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
             lambda: ah.l2relu_stats_lin(*a9b),
             lambda: ah.l2relu_stats_lin_plain(*a9b),
             bytes_=rows_real * f3 * isz + (f3 + 1) * c * isz + 2 * c * 4,
-            # p formed per element (the F3-term dot, which the card could
-            # run on the tensor cores in bf16), then the row norm and the
-            # sums (6 operations an element) on the f32 CUDA cores
+            # p formed per element (the F3-term dot, on the tensor cores in
+            # bf16), then the row norm and the sums (6 operations an
+            # element) on the f32 CUDA cores
             ops={dt_name: 2 * rows_real * c * f3, "float32": 6 * rows_real * c},
             source="cgcnet_tpu_torch/csrc/assign_tail.cu",
             replaces="cgcnet_tpu/ops/pallas/assign_head.py:943",

@@ -11,11 +11,19 @@ on inputs made from seeds. Three groups of legs (``--legs``, default all):
   weights, block capacity quantized as the loader does) at F=18 and F=1140
   in f32, and at F=1140 with bf16 blocks and x;
 - ``b9b``: B9b (``l2relu_stats_lin``) at the slide's shapes (100352 rows,
-  100000 real, F3=20, C=1140) in bf16 and f32;
+  100000 real, F3=20, C=1140) in bf16 and f32, and at C=2304 in bf16;
+- ``b5``: B5 (``assign_tail_bwd``) on the slide's full rows (100352 x
+  1140, 100000 real) in bf16 and f32, on the capacity path's chunks (65536
+  rows, all real; 34816 rows, 34464 real) in bf16, and on a patch batch
+  (B=4, N=5760, 4000-5760 real rows a graph) in f32 and bf16, and on the
+  slide's full rows at C=2304 in bf16 (where u and w are not held);
 - ``head``: one whole-slide B4 call (``assign_head_softmax_pre``: 100352
-  rows, 100000 real, F12=40, C=1140) in bf16 and f32, split by
+  rows, 100000 real, F12=40, C=1140) in bf16 and f32, and one bf16 B9a
+  call (``assign_head_softmax_pre_lin``, F3=20), split by
   ``chip_smoke.head_split`` into its row norm, product, softmax and other
-  launches.
+  launches; the B9a leg also prints a checksum of its S (the first 16 hex
+  digits of the SHA-256 of its bytes), so two commits' S can be compared
+  bit for bit.
 
     python3 scripts/kernel_turns.py                    # this checkout's
     python3 scripts/kernel_turns.py --root DIR         # another checkout's
@@ -25,19 +33,21 @@ on inputs made from seeds. Three groups of legs (``--legs``, default all):
 so two commits can be compared in one run on one card: run parent,
 change, change, parent. A B2 without a ``live_slots`` argument (an older
 checkout's) is called without it. Prints one JSON line per leg, with the
-card's name and power limit: for ``b2`` and ``b9b`` legs ``ms``, the
+card's name and power limit: for ``b2``, ``b9b`` and ``b5`` legs ``ms``, the
 median of ``--reps`` CUDA-event timings of the wrapper call
 (``chip_smoke.time_ms``, as chip_smoke.py times a kernel: the wrapper's
 host work included where the card would wait for it), and ``device_ms``,
 the device time of the call's kernels from a torch.profiler trace (the
-kernel alone; B9b's reduction and B2's lone launch); for ``head`` legs
-``device_ms_per_call``, the device ms of each part. Imports nothing of
-JAX. Needs a card.
+kernel alone; B9b's reduction and B2's lone launch), and for ``b5`` legs
+``bound_ms``, the bytes of p and dh over the real rows read once and dp
+written once over 3.35 TB/s; for ``head`` legs ``device_ms_per_call``, the
+device ms of each part. Imports nothing of JAX. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -50,7 +60,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 SLIDE_NUCLEI, F3, F12, C = 100_000, 20, 40, 1140
 PATCH_B, PATCH_N, CAPS = 4, 5760, (4, 6, 8, 12, 16)
-GROUPS = ("b2", "b9b", "head")
+GROUPS = ("b2", "b9b", "b5", "head")
 
 
 def patch_batch(knn, bsr, seed: int = 0):
@@ -145,17 +155,50 @@ def b2_legs(bsr, knn, dev, rnd) -> list:
 
 
 def b9b_legs(ah, dev, rnd) -> list:
-    """(name, call) of B9b at the slide's shapes, bf16 and f32."""
+    """(name, call) of B9b at the slide's shapes, bf16 and f32, and at
+    C=2304 in bf16."""
     import torch
 
     n_nodes = torch.tensor([SLIDE_NUCLEI], dtype=torch.int32, device=dev)
     rows = -(-SLIDE_NUCLEI // 512) * 512
-    kc3, b3 = rnd(F3, C) * 0.3, rnd(C) * 0.1
     legs = []
-    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+    for dt, tag, c in ((torch.bfloat16, "bf16", C), (torch.float32, "f32", C),
+                       (torch.bfloat16, "bf16", 2304)):
+        kc3, b3 = rnd(F3, c) * 0.3, rnd(c) * 0.1
         x3 = torch.relu(rnd(1, rows, F3)).to(dt)
-        legs.append((f"B9b {tag} N={rows} F3={F3} C={C}",
-                     lambda x3=x3: ah.l2relu_stats_lin(x3, kc3, b3, n_nodes)))
+        legs.append((f"B9b {tag} N={rows} F3={F3} C={c}",
+                     lambda x3=x3, kc3=kc3, b3=b3:
+                         ah.l2relu_stats_lin(x3, kc3, b3, n_nodes)))
+    return legs
+
+
+def b5_legs(ah, dev, rnd) -> list:
+    """(name, call, bound ms) of B5 (module docstring)."""
+    import torch
+
+    rows = -(-SLIDE_NUCLEI // 512) * 512
+    patch_real = [4000, 5760, 4800, 5321]
+    shapes = [  # (tag, dtype, B, N, real rows per graph, C)
+        ("slide full rows", torch.bfloat16, 1, rows, [SLIDE_NUCLEI], C),
+        ("slide full rows", torch.float32, 1, rows, [SLIDE_NUCLEI], C),
+        ("capacity chunk", torch.bfloat16, 1, 65536, [65536], C),
+        ("capacity chunk", torch.bfloat16, 1, rows - 65536,
+         [SLIDE_NUCLEI - 65536], C),
+        ("patch", torch.float32, PATCH_B, PATCH_N, patch_real, C),
+        ("patch", torch.bfloat16, PATCH_B, PATCH_N, patch_real, C),
+        # u and w read per vector, not held (C above 1280)
+        ("slide full rows", torch.bfloat16, 1, rows, [SLIDE_NUCLEI], 2304),
+    ]
+    legs = []
+    for tag, dt, b, n, real, cc in shapes:
+        n_nodes = torch.tensor(real, dtype=torch.int32, device=dev)
+        p, dh = rnd(b, n, cc).to(dt), (rnd(b, n, cc) * 1e-3).to(dt)
+        u, w = rnd(cc) * 1e-3, rnd(cc) * 1e-3
+        isz = p.element_size()
+        bound = (2 * sum(real) + b * n) * cc * isz / 3.35e12 * 1e3
+        name = f"B5 {tag} {str(dt).split('.')[-1]} B={b} N={n} C={cc}"
+        legs.append((name, lambda a=(p, dh, u, w, n_nodes):
+                     ah.assign_tail_bwd(*a), bound))
     return legs
 
 
@@ -196,14 +239,18 @@ def main() -> int:
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     legs = []
     if "b2" in groups:
-        legs += b2_legs(bsr, knn, dev, rnd)
+        legs += [(n, fn, None) for n, fn in b2_legs(bsr, knn, dev, rnd)]
     if "b9b" in groups:
-        legs += b9b_legs(ah, dev, rnd)
-    for name, fn in legs:
+        legs += [(n, fn, None) for n, fn in b9b_legs(ah, dev, rnd)]
+    if "b5" in groups:
+        legs += b5_legs(ah, dev, rnd)
+    for name, fn, bound in legs:
         ms = cs.time_ms(fn, reps=args.reps)
-        print(json.dumps({"root": args.root, "leg": name, "ms": ms,
-                          "device_ms": device_ms(fn), "device": smi}),
-              flush=True)
+        line = {"root": args.root, "leg": name, "ms": ms,
+                "device_ms": device_ms(fn), "device": smi}
+        if bound is not None:
+            line["bound_ms"] = bound
+        print(json.dumps(line), flush=True)
     del legs
     torch.cuda.empty_cache()
     if "head" in groups:
@@ -221,6 +268,20 @@ def main() -> int:
                 flush=True)
             del x12, p
             torch.cuda.empty_cache()
+        x12 = rnd(1, rows, F12).bfloat16()
+        x3 = torch.relu(rnd(1, rows, F3)).bfloat16()
+        kc3, b3 = rnd(F3, C) * 0.3, rnd(C) * 0.1
+        k12, k3f, const = rnd(F12, C) * 0.2, rnd(C, C) * 0.05, rnd(C) * 0.1
+        a9 = (x12, x3, kc3, b3, k12, k3f, const, n_nodes)
+        s = ah.assign_head_softmax_pre_lin(*a9)
+        digest = hashlib.sha256(
+            s.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+        split = cs.head_split(lambda: ah.assign_head_softmax_pre_lin(*a9),
+                              calls=args.calls)
+        print(json.dumps({
+            "root": args.root, "leg": f"B9a head bfloat16 N={rows} "
+            f"F12={F12} F3={F3} C={C}", "device_ms_per_call": split,
+            "s_sha256": digest, "device": smi}), flush=True)
     return 0
 
 

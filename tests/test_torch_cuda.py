@@ -11,7 +11,8 @@ Tolerances are fractions of max|plain|: f32 — B1 exact (same f32 sums in
 the same slot order; int8 too), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4, B6
 1e-5, B7 1e-4, B8 1e-4, B9a 1e-5, B9b 1e-5 (sums in another order); bf16 — the two roundings of the stored result may land one bf16
 step apart, up to 2^-7 of the value, so 2^-6. B9b in bf16 is also held
-against the exact (f64) statistics at ops/assign_head.STATS_TOL. Gradients, card vs CPU:
+against the exact (f64) statistics at ops/assign_head.STATS_TOL, and B5's
+rows past n_nodes are held to be exact zeros. Gradients, card vs CPU:
 1e-4 of max|grad| (f32 sums in another order through the same formulas).
 """
 
@@ -635,48 +636,128 @@ def _lin_inputs(seed, n=512, f3=20, cc=1140):
     return x3, rnd(f3, cc) * 0.3, rnd(cc) * 0.1
 
 
-def test_b9b_bf16_matches_plain_b3_and_exact(device):
-    """bf16 B9b against its plain version at the TOL rule, against the exact
-    statistics at STATS_TOL, and against B3's kernel on the plain p, bit for
-    bit (B9b is B3's kernel forming p with lin_p's bits), with n_nodes
-    ending mid-tile and two tiles wholly past it; results repeat bit for
-    bit."""
-    x3, kc3, b3 = _lin_inputs(31)
-    nn_ = torch.tensor([380], dtype=torch.int32)
-    args = (x3, kc3, b3, nn_)
-    dev = [t.to(device) for t in args]
+def _lin_probe(x3, kc3, b3):
+    """(p [B, N, C] bf16, rnorm [B, N, 1] f32) as B9a's and B9b's routines
+    form them (tc.cuh lin_p_mma, lin_rnorm), through the test-only C
+    entry; x3, kc3, b3 on the card."""
+    from cgcnet_tpu_torch.ops import _cuda
+
+    x = x3.reshape(-1, x3.shape[-1]).contiguous()
+    kc3t = ah.pad_lin_kernel(kc3)
+    bb = b3.bfloat16().contiguous()
+    rows, cc = x.shape[0], kc3.shape[1]
+    p = torch.empty((rows, cc), dtype=torch.bfloat16, device=x.device)
+    rn = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _cuda.launch("cgc_lin_p_probe", x.data_ptr(), kc3t.data_ptr(),
+                 bb.data_ptr(), p.data_ptr(), rn.data_ptr(), rows, x.shape[1],
+                 cc, *kc3t.shape, x.device.index or 0, _cuda.stream_of(x))
+    return (p.reshape(*x3.shape[:2], cc), rn.reshape(*x3.shape[:2], 1))
+
+
+def _check_b9b_bf16(device, cc):
+    """bf16 B9b at the whole slide's rows (100352, n_nodes 100000: it ends
+    mid-tile, and five tiles lie wholly past it; ``STATS_TOL`` is set for
+    that many rows): against its plain version at the TOL rule, against the
+    exact statistics at STATS_TOL, against the exact statistics of the h
+    that B9a's routines form (the probe's p and row norm) at STATS_TOL; the
+    tensor-core kernel ran; results repeat bit for bit."""
+    x3, kc3, b3 = _lin_inputs(31, n=100352, cc=cc)
+    nn_ = torch.tensor([100000], dtype=torch.int32)
+    dev = [t.to(device) for t in (x3, kc3, b3, nn_)]
     launches = ah.l2relu_stats_lin.launches
     got = ah.l2relu_stats_lin(*dev)
     assert ah.l2relu_stats_lin.launches == launches + 1
-    for o, r in zip(got, ah.l2relu_stats_lin_plain(*args)):
-        _close_to(o, r, 2.0 ** -6)
+    for o, r in zip(got, ah.l2relu_stats_lin_plain(*dev)):
+        _close(o, r, 2.0 ** -6)
     assert ah.stats_distance(got, ah.l2relu_stats_lin_reference(*dev)) \
         <= ah.STATS_TOL
-    via_b3 = ah.l2relu_stats(ah.lin_p(*dev[:3]), dev[3])
-    assert all(torch.equal(a, b) for a, b in zip(got, via_b3))
+    p_mma, rn_mma = _lin_probe(*dev[:3])
+    mma_exact = ah.l2relu_stats_reference(p_mma, dev[3], rnorm=rn_mma)
+    assert ah.stats_distance(got, mma_exact) <= ah.STATS_TOL
     again = ah.l2relu_stats_lin(*dev)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+    names = _kernel_names(lambda: ah.l2relu_stats_lin(*dev))
+    assert any("stats_lin_tc_kernel" in k for k in names), names
+
+
+def test_b9b_bf16_matches_plain_b3_and_exact(device):
+    """bf16 B9b at the model's C = 1140 (``_check_b9b_bf16``)."""
+    _check_b9b_bf16(device, 1140)
+
+
+@pytest.mark.parametrize("cc", [2304, 4096])
+def test_b9b_bf16_wide_c(device, cc):
+    """bf16 B9b at C past what fits a [64, C] p tile or kc3^T in shared
+    memory (nothing C-wide is staged there)."""
+    _check_b9b_bf16(device, cc)
 
 
 def test_lin_p_routine_matches_plain(device):
-    """The one device routine that forms p for both of B9a's kernels (tc.cuh
-    lin_p_mma: its row norm and its product), through its test-only C
-    entry, against the plain version's p: the same bf16 value or one bf16
-    step from it (the dot sums in another order), and the same in all but
-    a few values."""
-    from cgcnet_tpu_torch.ops import _cuda
-
+    """The device routines that form p and its row norm for B9a's kernels
+    and B9b (tc.cuh lin_p_mma, lin_rnorm), through their test-only C entry,
+    against the plain version's p: the same bf16 value or one bf16 step
+    from it (the dot sums in another order), and the same in all but a few
+    values; the row norm against the plain row norm of that p (f32 sums in
+    another order)."""
     x3, kc3, b3 = _lin_inputs(32)
     ref = ah.lin_p(x3, kc3, b3).float()
-    x3d, b3d = x3.to(device)[0].contiguous(), b3.to(device).bfloat16()
-    kc3t = ah.pad_lin_kernel(kc3.to(device))
-    rows, f3 = x3d.shape
-    cc = kc3.shape[1]
-    p = torch.empty((rows, cc), dtype=torch.bfloat16, device=device)
-    _cuda.launch("cgc_lin_p_probe", x3d.data_ptr(), kc3t.data_ptr(),
-                 b3d.data_ptr(), p.data_ptr(), rows, f3, cc, *kc3t.shape,
-                 device.index or 0, _cuda.stream_of(x3d))
+    p, rn = _lin_probe(*(t.to(device) for t in (x3, kc3, b3)))
     got = p.float().cpu()
     step = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
-    assert ((got - ref[0]).abs() <= step[0]).all()
-    assert (got == ref[0]).float().mean() > 0.99
+    assert ((got - ref).abs() <= step).all()
+    assert (got == ref).float().mean() > 0.99
+    rn_ref, _ = ah._rnorm_h(got)
+    assert torch.allclose(rn.cpu(), rn_ref, rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# B5: the row held in registers
+# ---------------------------------------------------------------------------
+
+def _b5_inputs(device, seed, dtype, b, n, cc, offset=0):
+    """p, dh [B, N, C] in ``dtype`` on the card (random on every row,
+    padded rows too), u, w f32 [C]; p and dh ``offset`` elements into their
+    storage, so their rows' base address is only that aligned."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + offset, dtype=dtype, device=device)
+        out = flat[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    return (shifted(rnd(b, n, cc)), shifted(rnd(b, n, cc) * 0.01),
+            (rnd(cc) * 0.01).to(device), (rnd(cc) * 0.01).to(device))
+
+
+@pytest.mark.parametrize("b,n,cc,real,offset", [
+    (2, 640, 1140, [600, 123], 0),     # the model's C, padded rows
+    (2, 640, 114, [640, 77], 0),       # stage 2's C
+    (2, 640, 1141, [555, 640], 0),     # an odd C: one element a vector
+    (2, 640, 1140, [600, 123], 1),     # rows aligned to one element only
+    (1, 192, 2304, [150], 0),          # f32: two warps a row
+    (1, 128, 10300, [100], 0),         # f32: wider than registers hold
+    (1, 64, 12400, [50], 0),           # bf16: wider than shared memory
+    (1, 65536, 1140, [65536], 0),      # the capacity path's chunks
+    (1, 34816, 1140, [34464], 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b5_matches_plain(device, dtype, b, n, cc, real, offset):
+    """B5 against its plain version on the same CUDA tensors at the TOL
+    rule (f32 1e-4, bf16 2^-6); rows past n_nodes exact zeros, as the plain
+    version gives them; results repeat bit for bit."""
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    p, dh, u, w = _b5_inputs(device, cc + len(real), dtype, b, n, cc,
+                             offset)
+    if offset:
+        assert p.data_ptr() % (2 * p.element_size())
+    nn_ = torch.tensor(real, dtype=torch.int32, device=device)
+    launches = ah.assign_tail_bwd.launches
+    got = ah.assign_tail_bwd(p, dh, u, w, nn_)
+    assert ah.assign_tail_bwd.launches == launches + 1
+    ref = ah.assign_tail_bwd_plain(p, dh, u, w, nn_)
+    _close(got, ref, tol)
+    for i, r in enumerate(real):
+        assert not ref[i, r:].any() and not got[i, r:].any()
+    assert torch.equal(ah.assign_tail_bwd(p, dh, u, w, nn_), got)
