@@ -34,7 +34,11 @@
 //      storing p would be the [N, C] tensor B9a exists to avoid, so B9a
 //      computes p twice (here and in the product): 2*N*C*F3 more operations
 //      (~5 GFLOP at 100k nuclei, F3 = 20). rnorm_kernel: one warp per row
-//      (B4; B9a in f32, p from x3 staged in shared memory and kc3);
+//      through common.cuh's row_rnorm, the routine of B3's statistics too,
+//      so the statistics and the head form the same h (B4: p read in the
+//      widest vectors the row width and base allow; B9a in f32: p formed
+//      per column from x3 staged in shared memory and kc3, as f32 B9b
+//      forms it);
 //      rnorm_lin_tc_kernel (B9a in bf16): p by mma.sync through
 //      tc.cuh's lin_p_mma, the routine of the product too, so norm and
 //      product read the same p, and the norm by tc.cuh's lin_rnorm, the
@@ -94,7 +98,10 @@ struct Lin {
   int F3;
 };
 
-template <typename T, bool LIN>
+// One warp per row: the row norm by cgc::row_rnorm, B3's routine — p read
+// in vectors of E (cgc::row_vec: the width B3 reads the same p in), or
+// (LIN, E = 1) p formed per column from the row's x3 by cgc::lin_p.
+template <typename T, int E, bool LIN>
 __global__ void __launch_bounds__(kThreads)
     rnorm_kernel(const T* __restrict__ p, Lin<T> lin,
                  float* __restrict__ rnorm, long long rows, int C) {
@@ -103,21 +110,22 @@ __global__ void __launch_bounds__(kThreads)
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   if (row >= rows) return;
-  float* xs = s_x3 + warp * (LIN ? lin.F3 : 0);
-  if (LIN) {
+  float rn;
+  if constexpr (LIN) {
+    float* xs = s_x3 + warp * lin.F3;
     for (int k = lane; k < lin.F3; k += 32)
       xs[k] = cgc::to_f32(lin.x3[row * lin.F3 + k]);
     __syncwarp();
+    rn = cgc::row_rnorm<1>(C, lane, [&](int c, float(&x)[1]) {
+      x[0] = cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c);
+    });
+  } else {
+    const T* pr = p + row * C;
+    rn = cgc::row_rnorm<E>(C / E, lane, [&](int v, float(&x)[E]) {
+      cgc::load_vec<T, E>(x, pr + v * E);
+    });
   }
-  const T* pr = p + row * C;
-  float ss = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = LIN ? cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c)
-                        : cgc::to_f32(pr[c]);
-    ss = fmaf(v, v, ss);
-  }
-  ss = cgc::warp_sum(ss);
-  if (lane == 0) rnorm[row] = 1.f / fmaxf(sqrtf(ss), 1e-12f);
+  if (lane == 0) rnorm[row] = rn;
 }
 
 // One k-step of the 128x128 tile: 8x8 outer products per thread.
@@ -747,8 +755,19 @@ cudaError_t launch_rnorm(const HeadArgs& a, cudaStream_t st) {
     const unsigned warp_blocks =
         static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
     const size_t smem = sizeof(float) * (kThreads / 32) * lin.F3;
-    rnorm_kernel<T, LIN><<<warp_blocks, kThreads, smem, st>>>(
-        static_cast<const T*>(a.p), lin, a.rnorm, rows, a.C);
+    auto p = static_cast<const T*>(a.p);
+    if constexpr (LIN) {
+      rnorm_kernel<T, 1, true><<<warp_blocks, kThreads, smem, st>>>(
+          p, lin, a.rnorm, rows, a.C);
+    } else {
+      cudaError_t err = cgc::with_vec<T>(cgc::row_vec<T>(a.C, p),
+                                         [&](auto e) {
+        rnorm_kernel<T, decltype(e)::value, false>
+            <<<warp_blocks, kThreads, 0, st>>>(p, lin, a.rnorm, rows, a.C);
+        return cudaSuccess;
+      });
+      if (err != cudaSuccess) return err;
+    }
     return cudaGetLastError();
   }
 }

@@ -10,27 +10,39 @@
 // (_stats_kernel). It returns ssum[C] = sum_rows round_T(rmask*h) and
 // ssq[C] = sum_rows round_T(rmask*h)^2 in f32 (h rounded to the storage
 // type T before summing, as the TPU kernel does). Bound on the H100: bytes
-// (p read once: 105 MB in f32 at B=4, N=5760, C=1140, ~0.03 ms). The TPU
-// carries the sums across a sequential grid; here blocks run in no order, so
-// each block of kStatsRows rows writes its own column partials [2, C] and a
-// second kernel sums them in a fixed order (warp w of a 32-column block sums
-// tiles w, w + 8, ... in order, then the 8 warp sums are added in warp
-// order): the result is the same bits run to run (atomics would not be).
-// A block first computes its rows' rnorm (one warp per row) into shared
-// memory, then each thread owns columns c = t, t + 256, ... and walks the
-// tile's rows eight loads at a time, so the loads of a row are coalesced
-// and the second read of the tile hits L1/L2. Tiles wholly past n_nodes are
-// neither computed nor summed (they add exactly 0).
+// (p of the real rows read once: 228 MB in bf16 at the slide's 100000 x
+// 1140, ~0.068 ms; 91 MB in f32 at the patch's B=4, N=5760, ~0.027 ms).
+// stats_kernel reads each real row once: the batch's real rows are cut
+// into equal runs in flat order, one per warp of a grid of at most 256
+// blocks (a function of the shape alone), and a warp streams its run
+// through shared memory by cp.async, kStatsStages rows a warp, so two rows
+// are in flight while one is summed (a bf16 row is little arithmetic for
+// its bytes: without the overlap it does not stream), in the widest
+// vectors the row width and base allow (8 bytes for bf16 at C = 1140, 16
+// for f32; cgc::row_vec). Per row, the norm comes from common.cuh's
+// row_rnorm over the staged copy — B4's rnorm_kernel calls the same
+// routine in the same vectors, so B3's h is B4's, bit for bit — then each
+// lane adds h and h^2 of its own columns (vector j * 32 + lane) into
+// registers, 1280 columns a pass; wider rows (no configuration has them:
+// the assign tail's C is int(max_num_nodes * 0.1), 1140 or 114) take a
+// grid column per 1280 columns, each reading the whole row for its norm.
+// Rows past n_nodes are neither read nor summed (they add exactly 0). A
+// block's eight warps put their sums in slices of shared memory of their
+// own, which all its threads add in warp order (half the columns at a
+// time, in the space the rows were staged in), and write one [2, C]
+// partial (2.3 MB at C = 1140); stats_reduce_kernel
+// sums the partials, half a warp per 16 columns and 32 half-warps a block
+// (~140 blocks at C = 1140), each over every 32nd partial with eight loads
+// in flight, then the half-warps in order. No atomics: the same bits run
+// to run.
 //
 // B9b replaces cgcnet_tpu/ops/pallas/assign_head.py: _stats_call_lin
-// (_stats_kernel_lin): B3 with conv3's lin inside the tile — p is never
-// stored, each value is formed where it is used from the tile's x3 rows and
-// kc3 / b3: p = round_T(round_T(x3 . kc3[:,c]) + b3[c]). The same tiles,
-// partials and reduction as B3, so the sums come in a fixed order and
-// repeat bit for bit. Bound: operations — the F3-term dot per element
-// (2*N*C*F3, ~4.6 GFLOP at 100k nuclei, F3 = 20; the tensor cores' in
-// bf16) and the row norm and sums on the f32 CUDA cores; x3 is read once
-// (~4 MB in bf16).
+// (_stats_kernel_lin): B3 with conv3's lin inside — p is never stored, each
+// value is formed where it is used from the row's x3 and kc3 / b3: p =
+// round_T(round_T(x3 . kc3[:,c]) + b3[c]). Bound: operations — the F3-term
+// dot per element (2*N*C*F3, ~4.6 GFLOP at 100k nuclei, F3 = 20; the
+// tensor cores' in bf16) and the row norm and sums on the f32 CUDA cores;
+// x3 is read once (~4 MB in bf16).
 //   bf16: stats_lin_tc_kernel, a block of four warps per 64-row tile. p is
 //   formed on the tensor cores by tc.cuh's lin_p_mma (mma.sync m16n8k16 of
 //   the x3 rows against a transposed, padded kc3, ops/assign_head.py
@@ -44,10 +56,12 @@
 //   sums h and h^2 of its two columns over its 8 rows, then the 8 lanes of
 //   a column pair add by xor-shuffle, in a fixed order. kc3^T (74 KB at C =
 //   1140) is read through L1 / L2, nothing C-wide sits in shared memory: any
-//   C. F3 <= 32 (two k-steps of 16).
-//   f32: stats_partial_kernel with the LIN switch: p from the tile's x3
-//   rows (staged in shared memory) by cgc::lin_p's fmaf chain on the CUDA
-//   cores, formed twice per element (the row norm, then the sums).
+//   C. F3 <= 32 (two k-steps of 16). Every tile writes its partial (zeros
+//   past n_nodes), and B3's reduction sums them.
+//   f32: B3's stats_kernel with the LIN switch: each row's p formed once,
+//   column by column by cgc::lin_p's fmaf chain on the CUDA cores, in the
+//   order of B9a f32's row norm (rnorm_kernel, the same row_rnorm), into
+//   the warp's row copy in shared memory, and summed from there.
 //
 // B5 replaces cgcnet_tpu/ops/pallas/assign_head.py: _bwd_call (_bwd_kernel):
 //   hs     = rmask * h
@@ -88,31 +102,27 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using cgc::Vec;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStatsRows = 64;  // rows per stats block; the caller passes its
-                                // own value, which must match
 
-template <typename T>
-__device__ __forceinline__ float row_rnorm(const T* __restrict__ pr, int C,
-                                           int lane) {
-  float ss = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = cgc::to_f32(pr[c]);
-    ss = fmaf(v, v, ss);
-  }
-  ss = cgc::warp_sum(ss);
-  return 1.f / fmaxf(sqrtf(ss), 1e-12f);
-}
-
-// Number of real rows of the kStatsRows-row tile starting at flat row0.
-__device__ __forceinline__ int tile_rows(long long row0, int N,
-                                         const int* __restrict__ n_nodes) {
-  const long long b = row0 / N;  // N % kStatsRows == 0: one graph per tile
-  const long long left = n_nodes[b] - (row0 - b * N);
-  return left <= 0 ? 0 : (left < kStatsRows ? static_cast<int>(left)
-                                            : kStatsRows);
+// Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
+// once per device (a launch asks for what it needs below that).
+template <auto Kernel>
+cudaError_t allow_smem(int device) {
+  static std::mutex mu;
+  static uint64_t done = 0;  // a bit per device
+  std::lock_guard<std::mutex> lock(mu);
+  if (device < 64 && (done >> device & 1)) return cudaSuccess;
+  int most;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess && device < 64) done |= uint64_t{1} << device;
+  return err;
 }
 
 // The conv3 lin operands of B9b: x3 [rows, F3], kc3 [F3, C], b3 [C].
@@ -124,115 +134,274 @@ struct Lin {
   int F3;
 };
 
-// The stats input at (flat row, column): p itself, or (LIN) formed from
-// the row's x3 staged at xs.
-template <typename T, bool LIN>
-__device__ __forceinline__ float p_at(const T* __restrict__ p,
-                                      const Lin<T>& lin, const float* xs,
-                                      long long row, int C, int c) {
-  if (LIN) return cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c);
-  return cgc::to_f32(p[row * C + c]);
+// ---- B3, and B9b in f32 ----
+
+constexpr int kStatsWarps = 8;
+constexpr int kStatsThreads = 32 * kStatsWarps;
+constexpr int kStatsPerLane = 40;  // columns a lane sums: 1280 a block pass
+constexpr int kStatsBlocks = 256;  // the grid's most blocks (its partials)
+constexpr int kStatsMinRows = 64;  // rows a block at the least
+constexpr int kStatsStages = 3;    // a warp's staged rows, two in flight
+
+// Real rows of graph b: n_nodes[b] within [0, N].
+__device__ __forceinline__ int real_rows(const int* __restrict__ n_nodes,
+                                         int b, int N) {
+  return min(max(n_nodes[b], 0), N);
 }
 
-template <typename T, bool LIN>
-__global__ void __launch_bounds__(kThreads)
-    stats_partial_kernel(const T* __restrict__ p, Lin<T> lin,
-                         const int* __restrict__ n_nodes,
-                         float* __restrict__ partial, int N, int C) {
-  __shared__ float s_rn[kStatsRows];
-  extern __shared__ float s_x3[];  // LIN: [kStatsRows][F3]
-  const long long row0 = static_cast<long long>(blockIdx.x) * kStatsRows;
-  const int rows = tile_rows(row0, N, n_nodes);
-  if (rows == 0) return;  // skipped by the reduction as well
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  if (LIN) {
-    for (int e = t; e < rows * lin.F3; e += kThreads)
-      s_x3[e] = cgc::to_f32(lin.x3[row0 * lin.F3 + e]);
+// A walk over the batch's real rows in flat order, from the i-th.
+struct RealRows {
+  int b, off;  // graph, row within it
+  __device__ void start(const int* __restrict__ n_nodes, int B, int N,
+                        long long i) {
+    for (b = 0; b < B; ++b) {
+      const int n = real_rows(n_nodes, b, N);
+      if (i < n) break;
+      i -= n;
+    }
+    off = static_cast<int>(i);
+  }
+  __device__ long long row(int N) const {
+    return static_cast<long long>(b) * N + off;
+  }
+  __device__ void next(const int* __restrict__ n_nodes, int B, int N) {
+    for (++off; b < B && off >= real_rows(n_nodes, b, N); ++b) off = 0;
+  }
+};
+
+// Per block (blockIdx.x, column chunk blockIdx.y): its warps' column sums
+// of h and h^2 -> partial[blockIdx.x, 0 | 1, the chunk's columns]. The
+// batch's real rows are cut into gridDim.x * kStatsWarps equal runs in flat
+// order; a warp walks its run, reading each row once in vectors of E
+// (whole: the chunk is the row), and each lane adds h and h^2 of its K
+// vectors (chunk vectors lane + 32k) into registers. Rows past n_nodes are
+// not read. The row norm is cgc::row_rnorm (B4's); h = round_T(relu(p) *
+// rnorm) as B4 forms it.
+//   !LIN: the rows arrive by cp.async into the warp's kStatsStages stages
+//   (bf16 vectors under 4 bytes by plain copies), two rows ahead of the one
+//   summed; with more than one chunk the norm reads the whole row from
+//   device memory (columns past 1280: no configuration has them).
+//   LIN (f32 B9b, E = 1): p formed per column from the row's x3 by
+//   cgc::lin_p, in the row norm's order (B9a f32's), into the warp's row
+//   copy, and summed from there; formed again per chunk past the first.
+// The warps' sums are then added through shared memory in warp order.
+// rnorm_out (test only; null on every path): each real row's norm.
+template <typename T, int E, bool LIN>
+__global__ void __launch_bounds__(kStatsThreads, 2)
+    stats_kernel(const T* __restrict__ p, Lin<T> lin,
+                 const int* __restrict__ n_nodes, float* __restrict__ partial,
+                 float* __restrict__ rnorm_out, int B, int N, int C,
+                 int chunk, int wbytes) {
+  using namespace cgc::tc;
+  constexpr int K = kStatsPerLane / E;  // vectors a lane sums
+  constexpr int kVB = E * static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) uint8_t smem_b3[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint8_t* wbuf = smem_b3 + static_cast<size_t>(warp) * wbytes;
+  const int nvec = C / E;
+  const int v0 = blockIdx.y * chunk;     // the chunk's first vector
+  const int nv = min(chunk, nvec - v0);  // and its vectors
+  const bool whole = gridDim.y == 1;
+
+  long long total = 0;
+  for (int b = 0; b < B; ++b) total += real_rows(n_nodes, b, N);
+  const long long runs = static_cast<long long>(gridDim.x) * kStatsWarps;
+  const long long run =
+      static_cast<long long>(blockIdx.x) * kStatsWarps + warp;
+  const long long lo = total * run / runs, hi = total * (run + 1) / runs;
+
+  float s[K][E] = {}, q[K][E] = {};
+  // value(v, x): the E values of chunk vector v of the row
+  auto add_row = [&](float rn, auto&& value) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int v = lane + 32 * k;
+      if (v >= nv) continue;
+      float x[E];
+      value(v, x);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float h = cgc::round_to<T>(fmaxf(x[e], 0.f) * rn);
+        s[k][e] += h;
+        q[k][e] = fmaf(h, h, q[k][e]);
+      }
+    }
+  };
+  auto keep_rnorm = [&](long long row, float rn) {
+    if (rnorm_out != nullptr && lane == 0 && blockIdx.y == 0)
+      rnorm_out[row] = rn;
+  };
+
+  RealRows at;
+  at.start(n_nodes, B, N, lo);
+  if constexpr (!LIN) {
+    const int slot = wbytes / kStatsStages;
+    RealRows ahead = at;
+    long long fi = lo;
+    auto fetch = [&](int st) {
+      if (fi < hi) {
+        const T* src =
+            p + ahead.row(N) * C + static_cast<long long>(v0) * E;
+        uint8_t* dst = wbuf + st * slot;
+        for (int v = lane; v < nv; v += 32) {
+          if constexpr (kVB >= 4)
+            cp_async<kVB>(smem_u32(dst + v * kVB), src + v * E, true);
+          else
+            *reinterpret_cast<Vec<T, E>*>(dst + v * kVB) =
+                *reinterpret_cast<const Vec<T, E>*>(src + v * E);
+        }
+        ahead.next(n_nodes, B, N);
+        ++fi;
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int st = 0; st < kStatsStages - 1; ++st) fetch(st);
+    for (long long i = lo; i < hi; i += kStatsStages) {
+#pragma unroll
+      for (int st = 0; st < kStatsStages; ++st) {
+        fetch((st + kStatsStages - 1) % kStatsStages);
+        cp_async_wait<kStatsStages - 1>();
+        __syncwarp();
+        if (i + st < hi) {
+          const long long row = at.row(N);
+          const T* xs = reinterpret_cast<const T*>(wbuf + st * slot);
+          auto staged = [&](int v, float(&x)[E]) {
+            cgc::load_vec<T, E>(x, xs + v * E);
+          };
+          const T* pr = p + row * C;
+          const float rn =
+              whole ? cgc::row_rnorm<E>(nv, lane, staged)
+                    : cgc::row_rnorm<E>(nvec, lane, [&](int v, float(&x)[E]) {
+                        cgc::load_vec<T, E>(x, pr + v * E);
+                      });
+          keep_rnorm(row, rn);
+          add_row(rn, staged);
+          at.next(n_nodes, B, N);
+        }
+        __syncwarp();  // the stage is read before it is refilled
+      }
+    }
+    cp_async_wait<0>();
+  } else {
+    float* xs = reinterpret_cast<float*>(wbuf);  // the row's x3 [F3]
+    float* prow = xs + (lin.F3 + 3) / 4 * 4;     // p of the chunk
+    for (long long i = lo; i < hi; ++i) {
+      const long long row = at.row(N);
+      for (int k = lane; k < lin.F3; k += 32)
+        xs[k] = cgc::to_f32(lin.x3[row * lin.F3 + k]);
+      __syncwarp();
+      auto p_at = [&](int c) {
+        return cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c);
+      };
+      float rn;
+      if (whole) {  // each lane keeps the columns it sums
+        rn = cgc::row_rnorm<1>(C, lane, [&](int c, float(&x)[1]) {
+          x[0] = p_at(c);
+          prow[c] = x[0];
+        });
+        add_row(rn, [&](int v, float(&x)[E]) { x[0] = prow[v]; });
+      } else {
+        rn = cgc::row_rnorm<1>(C, lane, [&](int c, float(&x)[1]) {
+          x[0] = p_at(c);
+        });
+        add_row(rn, [&](int v, float(&x)[E]) { x[0] = p_at(v0 + v); });
+      }
+      keep_rnorm(row, rn);
+      at.next(n_nodes, B, N);
+      __syncwarp();  // x3 is read before the next row's lands
+    }
+  }
+
+  // the block's partial: each warp's sums into a slice of its own, then
+  // the slices added in warp order by all the block's threads (one barrier
+  // a pass, where warp after warp through one slice made eight); two
+  // passes of half the columns, so the slices fit where the rows were
+  // staged (f32 B9b reads kc3 through L1, which more shared memory
+  // would take)
+  const int hv = (nv + 1) / 2;  // vectors a pass
+  float* red = reinterpret_cast<float*>(smem_b3);  // [kStatsWarps][2][hv * E]
+  float* mine = red + static_cast<size_t>(warp) * 2 * hv * E;
+  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * C +
+               static_cast<long long>(v0) * E;
+  for (int h0 = 0; h0 < nv; h0 += hv) {
+    const int hc = min(hv, nv - h0) * E;  // this pass's columns
+    __syncthreads();  // the stages, or the last pass's slices, are read
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int v = lane + 32 * k;
+      if (v < h0 || v >= h0 + hv || v >= nv) continue;
+      Vec<float, E> vs, vq;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        vs.v[e] = s[k][e];
+        vq.v[e] = q[k][e];
+      }
+      *reinterpret_cast<Vec<float, E>*>(mine + (v - h0) * E) = vs;
+      *reinterpret_cast<Vec<float, E>*>(mine + hv * E + (v - h0) * E) = vq;
+    }
     __syncthreads();
-  }
-  for (int r = warp; r < rows; r += kWarps) {
-    float rn;
-    if (LIN) {
-      const float* xs = s_x3 + r * lin.F3;
-      float ss = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float v = cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c);
-        ss = fmaf(v, v, ss);
-      }
-      ss = cgc::warp_sum(ss);
-      rn = 1.f / fmaxf(sqrtf(ss), 1e-12f);
-    } else {
-      rn = row_rnorm(p + (row0 + r) * C, C, lane);
+    for (int j = threadIdx.x; j < 2 * hc; j += kStatsThreads) {
+      const int c = j < hc ? j : hv * E + j - hc;  // within a slice
+      float t = red[c];
+      for (int w = 1; w < kStatsWarps; ++w) t += red[w * 2 * hv * E + c];
+      out[(j < hc ? 0 : C) + h0 * E + (j < hc ? j : j - hc)] = t;
     }
-    if (lane == 0) s_rn[r] = rn;
-  }
-  // rows past the tile's last real row give h = 0, an exact no-op below
-  if (t >= rows && t < kStatsRows) s_rn[t] = 0.f;
-  __syncthreads();
-  constexpr int kBatch = 8;  // independent loads in flight per thread
-  static_assert(kStatsRows % kBatch == 0, "a batch never passes the tile");
-  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * C;
-  for (int c = t; c < C; c += kThreads) {
-    float sum = 0.f, sq = 0.f;
-    for (int r0 = 0; r0 < rows; r0 += kBatch) {
-      float v[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        v[k] = r0 + k < rows
-                   ? p_at<T, LIN>(p, lin, s_x3 + (r0 + k) * (LIN ? lin.F3 : 0),
-                                  row0 + r0 + k, C, c)
-                   : 0.f;
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const float h = cgc::round_to<T>(fmaxf(v[k], 0.f) * s_rn[r0 + k]);
-        sum += h;
-        sq = fmaf(h, h, sq);
-      }
-    }
-    out[c] = sum;
-    out[C + c] = sq;
   }
 }
 
-// out[0, c] = sum over the real tiles of partial[tile, 0, c] (and out[1, c]
-// of the squares). One block per 32 columns (lane = column, so a warp reads
-// 128 contiguous bytes of a tile); warp w sums tiles w, w + kWarps, ... in
-// order, then warp 0 adds the warp sums in warp order.
-__global__ void __launch_bounds__(kThreads)
-    stats_reduce_kernel(const float* __restrict__ partial,
-                        const int* __restrict__ n_nodes,
-                        float* __restrict__ out, int tiles, int N, int C) {
-  __shared__ float s_sum[kWarps][32], s_sq[kWarps][32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int c = blockIdx.x * 32 + lane;
-  float sum = 0.f, sq = 0.f;
-  if (c < C) {
-    for (int i = warp; i < tiles; i += kWarps) {
-      if (tile_rows(static_cast<long long>(i) * kStatsRows, N, n_nodes) == 0)
-        continue;
-      const float* pt = partial + static_cast<long long>(i) * 2 * C;
-      sum += pt[c];
-      sq += pt[C + c];
+// out[j] = the sum over the P partials of partial[i, j], j < C2 (= 2C, the
+// column sums then the sums of squares). A block takes 16 consecutive j;
+// half-warp g sums partials g, g + 32, ... in order, kRedBatch loads in
+// flight, then the 32 half-warps' sums are added in order: the same bits
+// run to run.
+constexpr int kRedCols = 16;
+constexpr int kRedGroups = 32;
+constexpr int kRedThreads = kRedCols * kRedGroups;
+constexpr int kRedBatch = 8;
+
+__global__ void __launch_bounds__(kRedThreads)
+    stats_reduce_kernel(const float* __restrict__ partial, int P, int C2,
+                        float* __restrict__ out) {
+  __shared__ float s_red[kRedGroups][kRedCols];
+  const int t = threadIdx.x, g = t / kRedCols, col = t % kRedCols;
+  const int j = blockIdx.x * kRedCols + col;
+  float sum = 0.f;
+  if (j < C2) {
+    for (int i0 = g; i0 < P; i0 += kRedGroups * kRedBatch) {
+      float v[kRedBatch];
+#pragma unroll
+      for (int u = 0; u < kRedBatch; ++u) {
+        const int i = i0 + u * kRedGroups;
+        v[u] = i < P ? __ldg(partial + static_cast<long long>(i) * C2 + j)
+                     : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRedBatch; ++u) sum += v[u];
     }
   }
-  s_sum[warp][lane] = sum;
-  s_sq[warp][lane] = sq;
+  s_red[g][col] = sum;
   __syncthreads();
-  if (warp != 0 || c >= C) return;
-  float tot = 0.f, tot_sq = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    tot += s_sum[w][lane];
-    tot_sq += s_sq[w][lane];
-  }
-  out[c] = tot;
-  out[C + c] = tot_sq;
+  if (t >= kRedCols || j >= C2) return;
+  float tot = s_red[0][t];
+  for (int k = 1; k < kRedGroups; ++k) tot += s_red[k][t];
+  out[j] = tot;
 }
 
 // ---- B9b in bf16 on the tensor cores ----
 
-constexpr int kLinWarps = kStatsRows / 16;  // a warp per 16-row group
+constexpr int kLinRows = 64;              // rows per block
+constexpr int kLinWarps = kLinRows / 16;  // a warp per 16-row group
 constexpr int kLinThreads = 32 * kLinWarps;
+
+// Number of real rows of the kLinRows-row tile starting at flat row0.
+__device__ __forceinline__ int tile_rows(long long row0, int N,
+                                         const int* __restrict__ n_nodes) {
+  const long long b = row0 / N;  // N % kLinRows == 0: one graph per tile
+  const long long left = n_nodes[b] - (row0 - b * N);
+  return left <= 0 ? 0 : (left < kLinRows ? static_cast<int>(left)
+                                          : kLinRows);
+}
 
 __global__ void __launch_bounds__(kLinThreads)
     stats_lin_tc_kernel(const bf16* __restrict__ x3,
@@ -241,14 +410,18 @@ __global__ void __launch_bounds__(kLinThreads)
                         const int* __restrict__ n_nodes,
                         float* __restrict__ partial, int N, int F3, int C) {
   using namespace cgc::tc;
-  __shared__ float s_rn[kStatsRows];
-  __shared__ bf16 s_x3[kStatsRows * kF3Pad];  // [kStatsRows][F3]
-  const long long row0 = static_cast<long long>(blockIdx.x) * kStatsRows;
+  __shared__ float s_rn[kLinRows];
+  __shared__ bf16 s_x3[kLinRows * kF3Pad];  // [kLinRows][F3]
+  const long long row0 = static_cast<long long>(blockIdx.x) * kLinRows;
   const int rows = tile_rows(row0, N, n_nodes);
-  if (rows == 0) return;  // skipped by the reduction as well
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * C;
+  if (rows == 0) {  // a tile past n_nodes adds zeros, read by the reduction
+    for (int j = t; j < 2 * C; j += kLinThreads) out[j] = 0.f;
+    return;
+  }
   const int g = lane / 4, tq = lane % 4;
-  for (int e = t; e < kStatsRows * F3; e += kLinThreads)
+  for (int e = t; e < kLinRows * F3; e += kLinThreads)
     s_x3[e] = x3[row0 * F3 + e];
   __syncthreads();
   {  // phase 1: the row norm of the warp's 16 rows; 0 past the real rows
@@ -271,7 +444,6 @@ __global__ void __launch_bounds__(kLinThreads)
     rn[r][0] = s_rn[16 * r + g];
     rn[r][1] = s_rn[16 * r + g + 8];
   }
-  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * C;
   for (int jn = warp; jn < (C + 7) / 8; jn += kLinWarps) {
     const int col = 8 * jn + 2 * tq;
     uint32_t bf[4];
@@ -323,11 +495,6 @@ constexpr int kBwdPerLane = 40;
 // shared memory the staged kernel's block may take: its warps' two stages
 // of a p row and a dh row each
 constexpr int kStagedBytes = 96 * 1024;
-
-template <typename T, int E>
-struct alignas(sizeof(T) * E) Vec {
-  T v[E];
-};
 
 // E consecutive f32 values at ``src`` (aligned to 4 * min(E, 4) bytes)
 template <int E>
@@ -624,43 +791,69 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool LIN>
-cudaError_t launch_stats(const void* p, const void* x3, const void* kc3,
-                         const void* b3, int F3, const int* n_nodes,
-                         float* partial, float* out, int B, int N, int C,
-                         cudaStream_t st) {
-  const int tiles = static_cast<int>(static_cast<long long>(B) * N / kStatsRows);
-  if (C == 0) return cudaGetLastError();
-  const Lin<T> lin{static_cast<const T*>(x3), static_cast<const T*>(kc3),
-                   static_cast<const T*>(b3), LIN ? F3 : 0};
-  const size_t smem = sizeof(float) * kStatsRows * lin.F3;
-  if (LIN) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stats_partial_kernel<T, LIN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  if (tiles > 0)
-    stats_partial_kernel<T, LIN><<<tiles, kThreads, smem, st>>>(
-        static_cast<const T*>(p), lin, n_nodes, partial, N, C);
-  stats_reduce_kernel<<<(C + 31) / 32, kThreads, 0, st>>>(
-      partial, n_nodes, out, tiles, N, C);
+// B3 (and f32 B9b) in vectors of E: the column chunk and the grid, both
+// functions of the shape alone, then the reduction over the grid's
+// partials. ``parts``: the partials the caller's scratch holds.
+template <typename T, int E, bool LIN>
+cudaError_t launch_stats_as(const T* p, const Lin<T>& lin,
+                            const int* n_nodes, float* partial, int parts,
+                            float* out, float* rnorm, int B, int N, int C,
+                            int device, cudaStream_t st) {
+  static_assert(!LIN || E == 1, "B9b forms p one column at a time");
+  constexpr int K = kStatsPerLane / E;
+  const int nvec = C / E;
+  const int chunk = std::min(nvec, 32 * K);
+  const int chunks = (nvec + chunk - 1) / chunk;
+  const long long rows = static_cast<long long>(B) * N;
+  const int blocks = static_cast<int>(std::min<long long>(
+      kStatsBlocks,
+      std::max<long long>(1, (rows + kStatsMinRows - 1) / kStatsMinRows)));
+  if (parts < blocks) return cudaErrorInvalidValue;
+  const int cols = chunk * E;
+  const int wbytes =
+      LIN ? 4 * ((lin.F3 + 3) / 4 * 4 + cols)
+          : kStatsStages * ((cols * static_cast<int>(sizeof(T)) + 15) / 16 *
+                            16);
+  // per warp: its staged rows, then its slices of half the columns
+  const int smem = kStatsWarps * std::max(wbytes, 8 * ((chunk + 1) / 2) * E);
+  cudaError_t err = allow_smem<stats_kernel<T, E, LIN>>(device);
+  if (err != cudaSuccess) return err;
+  stats_kernel<T, E, LIN>
+      <<<dim3(blocks, chunks), kStatsThreads, smem, st>>>(
+          p, lin, n_nodes, partial, rnorm, B, N, C, chunk, wbytes);
+  stats_reduce_kernel<<<(2 * C + kRedCols - 1) / kRedCols, kRedThreads, 0,
+                        st>>>(partial, blocks, 2 * C, out);
   return cudaGetLastError();
 }
 
-// bf16 B9b: the tensor-core partials, then B3's reduction
+// B3: p read in the widest vectors its rows allow (cgc::row_vec, B4's
+// choice on the same p)
+template <typename T>
+cudaError_t launch_stats(const T* p, const int* n_nodes, float* partial,
+                         int parts, float* out, float* rnorm, int B, int N,
+                         int C, int device, cudaStream_t st) {
+  if (C == 0) return cudaGetLastError();
+  const Lin<T> none{nullptr, nullptr, nullptr, 0};
+  return cgc::with_vec<T>(cgc::row_vec<T>(C, p), [&](auto e) {
+    return launch_stats_as<T, decltype(e)::value, false>(
+        p, none, n_nodes, partial, parts, out, rnorm, B, N, C, device, st);
+  });
+}
+
+// bf16 B9b: the tensor-core partials of every kLinRows-row tile (zeros
+// past n_nodes), then B3's reduction over them
 cudaError_t launch_stats_lin_tc(const bf16* x3, const bf16* kc3t,
                                 const bf16* b3, int F3, const int* n_nodes,
-                                float* partial, float* out, int B, int N,
-                                int C, cudaStream_t st) {
-  const int tiles =
-      static_cast<int>(static_cast<long long>(B) * N / kStatsRows);
+                                float* partial, int parts, float* out, int B,
+                                int N, int C, cudaStream_t st) {
+  const int tiles = static_cast<int>(static_cast<long long>(B) * N / kLinRows);
   if (C == 0) return cudaGetLastError();
+  if (parts < tiles) return cudaErrorInvalidValue;
   if (tiles > 0)
     stats_lin_tc_kernel<<<tiles, kLinThreads, 0, st>>>(x3, kc3t, b3, n_nodes,
                                                        partial, N, F3, C);
-  stats_reduce_kernel<<<(C + 31) / 32, kThreads, 0, st>>>(
-      partial, n_nodes, out, tiles, N, C);
+  stats_reduce_kernel<<<(2 * C + kRedCols - 1) / kRedCols, kRedThreads, 0,
+                        st>>>(partial, tiles, 2 * C, out);
   return cudaGetLastError();
 }
 
@@ -795,26 +988,28 @@ cudaError_t launch_bwd(const void* p_, const void* dh_, const float* u,
 
 }  // namespace
 
-// partial: f32 scratch [B*N/tile_rows, 2, C] sized by the caller from its
-// tile_rows, refused unless that is kStatsRows; out: f32 [2, C] (ssum, ssq).
+// B3: p [B*N, C] in the compute type, n_nodes; partial: f32 scratch
+// [parts, 2, C], refused below the grid's blocks (at most kStatsBlocks);
+// out: f32 [2, C] (ssum, ssq); rnorm: null, or (test only) f32 [B*N] that
+// takes each real row's norm.
 extern "C" int cgc_l2relu_stats(const void* p, const void* n_nodes,
-                                void* partial, void* out, int B, int N, int C,
-                                int tile_rows, int dtype, int device,
-                                void* stream) {
-  if (tile_rows != kStatsRows || N % kStatsRows) return cudaErrorInvalidValue;
+                                void* partial, void* out, void* rnorm, int B,
+                                int N, int C, int parts, int dtype,
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto st = static_cast<cudaStream_t>(stream);
   auto nn = static_cast<const int*>(n_nodes);
   auto part = static_cast<float*>(partial);
   auto o = static_cast<float*>(out);
+  auto rn = static_cast<float*>(rnorm);
   switch (dtype) {
     case cgc::kF32:
-      return launch_stats<float, false>(p, nullptr, nullptr, nullptr, 0, nn,
-                                        part, o, B, N, C, st);
+      return launch_stats<float>(static_cast<const float*>(p), nn, part,
+                                 parts, o, rn, B, N, C, device, st);
     case cgc::kBF16:
-      return launch_stats<bf16, false>(p, nullptr, nullptr, nullptr, 0, nn,
-                                       part, o, B, N, C, st);
+      return launch_stats<bf16>(static_cast<const bf16*>(p), nn, part, parts,
+                                o, rn, B, N, C, device, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -822,16 +1017,18 @@ extern "C" int cgc_l2relu_stats(const void* p, const void* n_nodes,
 
 // B9b: x3 [B*N, F3], b3 [C] in the compute type; kc3 [F3, C] (f32; null in
 // bf16) or kc3t [kt_rows, kt_cols] = [round_up(C, 64), 32], kc3^T padded
-// (bf16, ops/assign_head.py pad_lin_kernel; null in f32); partial and out
-// as for cgc_l2relu_stats.
+// (bf16, ops/assign_head.py pad_lin_kernel; null in f32); partial [parts,
+// 2, C]: f32 takes B3's grid (at most kStatsBlocks partials), bf16 one
+// partial per 64-row tile (N a multiple of 64); out as for
+// cgc_l2relu_stats; rnorm (f32 only): as for cgc_l2relu_stats.
 extern "C" int cgc_l2relu_stats_lin(const void* x3, const void* kc3,
                                     const void* kc3t, const void* b3,
                                     const void* n_nodes, void* partial,
-                                    void* out, int B, int N, int F3, int C,
-                                    int kt_rows, int kt_cols, int tile_rows,
-                                    int dtype, int device, void* stream) {
-  if (tile_rows != kStatsRows || N % kStatsRows || F3 <= 0)
-    return cudaErrorInvalidValue;
+                                    void* out, void* rnorm, int B, int N,
+                                    int F3, int C, int kt_rows, int kt_cols,
+                                    int parts, int dtype, int device,
+                                    void* stream) {
+  if (F3 <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto st = static_cast<cudaStream_t>(stream);
@@ -839,17 +1036,24 @@ extern "C" int cgc_l2relu_stats_lin(const void* x3, const void* kc3,
   auto part = static_cast<float*>(partial);
   auto o = static_cast<float*>(out);
   switch (dtype) {
-    case cgc::kF32:
+    case cgc::kF32: {
       if (kc3 == nullptr) return cudaErrorInvalidValue;
-      return launch_stats<float, true>(nullptr, x3, kc3, b3, F3, nn, part, o,
-                                       B, N, C, st);
+      if (C == 0) return cudaGetLastError();
+      const Lin<float> lin{static_cast<const float*>(x3),
+                           static_cast<const float*>(kc3),
+                           static_cast<const float*>(b3), F3};
+      return launch_stats_as<float, 1, true>(nullptr, lin, nn, part, parts, o,
+                                             static_cast<float*>(rnorm), B, N,
+                                             C, device, st);
+    }
     case cgc::kBF16:
-      if (kc3t == nullptr || F3 > cgc::tc::kF3Pad ||
-          kt_rows != (C + 63) / 64 * 64 || kt_cols != cgc::tc::kF3Pad)
+      if (kc3t == nullptr || rnorm != nullptr || N % kLinRows ||
+          F3 > cgc::tc::kF3Pad || kt_rows != (C + 63) / 64 * 64 ||
+          kt_cols != cgc::tc::kF3Pad)
         return cudaErrorInvalidValue;
       return launch_stats_lin_tc(
           static_cast<const bf16*>(x3), static_cast<const bf16*>(kc3t),
-          static_cast<const bf16*>(b3), F3, nn, part, o, B, N, C, st);
+          static_cast<const bf16*>(b3), F3, nn, part, parts, o, B, N, C, st);
     default:
       return cudaErrorInvalidValue;
   }

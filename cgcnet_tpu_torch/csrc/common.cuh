@@ -1,10 +1,13 @@
 // Shared helpers of the cgcnet_tpu_torch kernels: storage types, f32
-// conversion, and the C-interface conventions (dtype codes, error return).
+// conversion, vector loads, the row norm of B3 and B4, and the C-interface
+// conventions (dtype codes, error return).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cgc {
 
@@ -61,6 +64,54 @@ __device__ __forceinline__ float lin_p(const float* xs,
   return round_to<T>(round_to<T>(acc) + to_f32(b3[c]));
 }
 
+// E consecutive values of T as one aligned load or store (E * sizeof(T) <=
+// 16 bytes).
+template <typename T, int E>
+struct alignas(sizeof(T) * E) Vec {
+  T v[E];
+};
+
+// E values of T at ``src`` (aligned to E * sizeof(T); global or shared
+// memory) in f32.
+template <typename T, int E>
+__device__ __forceinline__ void load_vec(float (&d)[E],
+                                         const T* __restrict__ src) {
+  const Vec<T, E> x = *reinterpret_cast<const Vec<T, E>*>(src);
+#pragma unroll
+  for (int e = 0; e < E; ++e) d[e] = to_f32(x.v[e]);
+}
+
+// The widest vector (elements of T, at most 16 bytes) that rows C wide
+// starting at ``base`` allow: C a multiple of it and ``base`` aligned to
+// it. B3 and B4 read a row in vectors of this width, so on the same p they
+// pick the same one.
+template <typename T>
+inline int row_vec(int C, const void* base) {
+  for (int e = 16 / static_cast<int>(sizeof(T)); e > 1; e /= 2)
+    if (C % e == 0 &&
+        reinterpret_cast<uintptr_t>(base) % (e * sizeof(T)) == 0)
+      return e;
+  return 1;
+}
+
+// f(std::integral_constant<int, E>) for E = e, a width row_vec<T> gives:
+// the launch of a kernel templated on its vector width.
+template <typename T, typename F>
+cudaError_t with_vec(int e, F&& f) {
+  switch (e) {
+    case 8:
+      if constexpr (sizeof(T) <= 2)
+        return f(std::integral_constant<int, 8>{});
+      return cudaErrorInvalidValue;
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    default:
+      return f(std::integral_constant<int, 1>{});
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -72,6 +123,30 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// 1 / max(||row||, 1e-12) of a row of ``nvec`` vectors of E values, which
+// ``load(v, x)`` puts into x[E] (f32): lane l takes vectors l, l + 32, ...,
+// each of its E element positions a chain of fmaf in vector order; the E
+// chains are added in order, then the lanes by warp_sum. The one order of
+// B3's row norm (assign_tail.cu) and of B4's and f32 B9a's (assign_head.cu
+// rnorm_kernel; B9a with E = 1 and p formed by lin_p), so the statistics
+// and the head form the same h from the same p, bit for bit. Every lane
+// of the warp calls it.
+template <int E, typename Load>
+__device__ __forceinline__ float row_rnorm(int nvec, int lane, Load&& load) {
+  float ss[E] = {};
+  for (int v = lane; v < nvec; v += 32) {
+    float x[E];
+    load(v, x);
+#pragma unroll
+    for (int e = 0; e < E; ++e) ss[e] = fmaf(x[e], x[e], ss[e]);
+  }
+  float s = ss[0];
+#pragma unroll
+  for (int e = 1; e < E; ++e) s += ss[e];
+  s = warp_sum(s);
+  return 1.f / fmaxf(sqrtf(s), 1e-12f);
 }
 
 }  // namespace cgc

@@ -307,8 +307,12 @@ assign_head_softmax.launches = 0
 # B3: BN batch statistics of h
 # ---------------------------------------------------------------------------
 
-# rows per block of the stats kernel; passed to it, which refuses any other
-# value than its own kStatsRows (csrc/assign_tail.cu)
+# the most blocks of B3's grid (csrc/assign_tail.cu kStatsBlocks), each
+# writing one [2, C] partial: the scratch B3 and f32 B9b are given, which
+# their entry refuses if it holds fewer than the grid's blocks
+STATS_BLOCKS = 256
+# rows per block of bf16 B9b (csrc/assign_tail.cu kLinRows): one partial
+# each, N a multiple of it
 STATS_ROWS = 64
 
 
@@ -335,19 +339,17 @@ def l2relu_stats(
     b, n, c = p.shape
     if p.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"l2relu_stats: unsupported dtype {p.dtype}")
-    if n % STATS_ROWS:
-        raise ValueError(f"l2relu_stats: N={n} must tile by {STATS_ROWS}")
     p = p.contiguous()
     n_nodes = n_nodes.to(torch.int32).contiguous()
     _cuda.require_cuda("l2relu_stats", p, n_nodes)
-    tiles = b * n // STATS_ROWS
-    partial = torch.empty((tiles, 2, c), dtype=torch.float32, device=p.device)
+    partial = torch.empty((STATS_BLOCKS, 2, c), dtype=torch.float32,
+                          device=p.device)
     out = torch.empty((2, c), dtype=torch.float32, device=p.device)
     _cuda.launch(
         "cgc_l2relu_stats",
         p.data_ptr(), n_nodes.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        b, n, c, STATS_ROWS, _cuda.DTYPE_CODES[p.dtype], p.device.index,
-        _cuda.stream_of(p),
+        None, b, n, c, STATS_BLOCKS, _cuda.DTYPE_CODES[p.dtype],
+        p.device.index, _cuda.stream_of(p),
     )
     l2relu_stats.launches += 1
     return out[0], out[1]
@@ -790,7 +792,8 @@ def l2relu_stats_lin(x3, kc3, b3, n_nodes):
     """B9b. Same contract as :func:`l2relu_stats_lin_plain`; launches
     ``csrc/assign_tail.cu`` for CUDA tensors: in bf16 p and its row norm on
     the tensor cores through B9a's routines (over ``pad_lin_kernel``'s copy
-    of kc3, so F3 <= 32), in f32 B3's kernel with the LIN switch."""
+    of kc3, so F3 <= 32; N a multiple of ``STATS_ROWS``), in f32 B3's
+    kernel with the LIN switch (each row's p formed once)."""
     _check_lin("l2relu_stats_lin", x3, kc3, b3, n_nodes)
     if x3.device.type == "cpu":
         return l2relu_stats_lin_plain(x3, kc3, b3, n_nodes)
@@ -799,25 +802,25 @@ def l2relu_stats_lin(x3, kc3, b3, n_nodes):
     dt = x3.dtype
     if dt not in _cuda.DTYPE_CODES:
         raise ValueError(f"l2relu_stats_lin: unsupported dtype {dt}")
-    if n % STATS_ROWS:
+    bf = dt == torch.bfloat16
+    if bf and n % STATS_ROWS:
         raise ValueError(f"l2relu_stats_lin: N={n} must tile by {STATS_ROWS}")
     x3 = x3.contiguous()
     b3 = b3.to(dt).contiguous()
     n_nodes = n_nodes.to(torch.int32).contiguous()
-    bf = dt == torch.bfloat16
     kc3 = kc3.contiguous() if bf else kc3.to(dt).contiguous()
     _cuda.require_cuda("l2relu_stats_lin", x3, kc3, b3, n_nodes)
     # bf16 reads only the padded transposed copy (cast as it is copied)
     kc3t = pad_lin_kernel(kc3) if bf else None
-    tiles = b * n // STATS_ROWS
-    partial = torch.empty((tiles, 2, c), dtype=torch.float32, device=x3.device)
+    parts = b * n // STATS_ROWS if bf else STATS_BLOCKS
+    partial = torch.empty((parts, 2, c), dtype=torch.float32, device=x3.device)
     out = torch.empty((2, c), dtype=torch.float32, device=x3.device)
     _cuda.launch(
         "cgc_l2relu_stats_lin",
         x3.data_ptr(), _ptr(None if bf else kc3), _ptr(kc3t), b3.data_ptr(),
-        n_nodes.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n, f3, c,
-        *_shape2(kc3t), STATS_ROWS, _cuda.DTYPE_CODES[dt], x3.device.index,
-        _cuda.stream_of(x3),
+        n_nodes.data_ptr(), partial.data_ptr(), out.data_ptr(), None, b, n,
+        f3, c, *_shape2(kc3t), parts, _cuda.DTYPE_CODES[dt],
+        x3.device.index, _cuda.stream_of(x3),
     )
     l2relu_stats_lin.launches += 1
     return out[0], out[1]

@@ -237,7 +237,8 @@ def bsr_build_blocks(
     nbr = nbr.to(torch.int32).contiguous()
     w = w.to(torch.float32).contiguous()
     blk_cols = blk_cols.to(torch.int32).contiguous()
-    blk_mask = blk_mask.to(torch.int32).to(torch.float32).contiguous()
+    # the kernel truncates the mask to an integer, as the plain version does
+    blk_mask = blk_mask.to(torch.float32).contiguous()
     _cuda.require_cuda("bsr_build_blocks", nbr, w, blk_cols, blk_mask)
     vals = torch.empty((b, r, m, TILE, TILE), dtype=dtype, device=nbr.device)
     _cuda.launch(

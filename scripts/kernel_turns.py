@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of hand-written kernels at the whole slide's and the patch
 path's shapes, on one NVIDIA GPU, for this checkout's kernels or another's,
-on inputs made from seeds. Three groups of legs (``--legs``, default all):
+on inputs made from seeds. Groups of legs (``--legs``, default all):
 
 - ``b2``: B2 (``bsr_matmul``) on the whole slide's int8 blocks (a synthetic
   100k-nuclei slide, one shard, built as ``cli.slide`` builds it) at F=18
@@ -17,6 +17,14 @@ on inputs made from seeds. Three groups of legs (``--legs``, default all):
   rows, all real; 34816 rows, 34464 real) in bf16, and on a patch batch
   (B=4, N=5760, 4000-5760 real rows a graph) in f32 and bf16, and on the
   slide's full rows at C=2304 in bf16 (where u and w are not held);
+- ``b3``: B3 (``l2relu_stats``) on the slide's rows (100352 x 1140,
+  100000 real) in bf16 and f32 and on a patch batch (B=4, N=5760,
+  4000-5760 real rows a graph) in f32 and bf16; each line also carries
+  ``sha256``, the first 16 hex digits of the SHA-256 of the (sum, sumsq)
+  bits, so two turns of one tree can be seen to agree;
+- ``b1``: B1 (``bsr_build_blocks``) on a patch batch's A (as ``b2``) in f32
+  and bf16, and on the slide's int8 blocks of A and of its transpose (as
+  ``parallel.mega_model.build_vals`` builds them);
 - ``head``: one whole-slide B4 call (``assign_head_softmax_pre``: 100352
   rows, 100000 real, F12=40, C=1140) in bf16 and f32, and one bf16 B9a
   call (``assign_head_softmax_pre_lin``, F3=20), split by
@@ -38,10 +46,13 @@ median of ``--reps`` CUDA-event timings of the wrapper call
 (``chip_smoke.time_ms``, as chip_smoke.py times a kernel: the wrapper's
 host work included where the card would wait for it), and ``device_ms``,
 the device time of the call's kernels from a torch.profiler trace (the
-kernel alone; B9b's reduction and B2's lone launch), and for ``b5`` legs
-``bound_ms``, the bytes of p and dh over the real rows read once and dp
-written once over 3.35 TB/s; for ``head`` legs ``device_ms_per_call``, the
-device ms of each part. Imports nothing of JAX. Needs a card.
+kernel alone; B9b's and B3's reductions and B2's lone launch), and for
+``b5``, ``b3`` and ``b1`` legs ``bound_ms`` and ``bound_share`` (bound over
+device ms): bytes over 3.35 TB/s — B5 p and dh over the real rows read
+once and dp written once, B3 p over the real rows read once, B1 the ELL
+slice and slot tables read once and the blocks written once; for ``head``
+legs ``device_ms_per_call``, the device ms of each part. Imports nothing of
+JAX. Needs a card.
 """
 
 from __future__ import annotations
@@ -60,7 +71,25 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 SLIDE_NUCLEI, F3, F12, C = 100_000, 20, 40, 1140
 PATCH_B, PATCH_N, CAPS = 4, 5760, (4, 6, 8, 12, 16)
-GROUPS = ("b2", "b9b", "b5", "head")
+GROUPS = ("b2", "b9b", "b5", "head", "b3", "b1")
+PATCH_REAL = [4000, 5760, 4800, 5321]
+_SLIDE = {}
+
+
+def slide_inputs(dev):
+    """The synthetic 100k-nuclei slide's block tables, one shard, bf16
+    model (built once per run)."""
+    if "inp" not in _SLIDE:
+        from cgcnet_tpu_torch.config import Config
+        from cgcnet_tpu_torch.parallel.slide_setup import (
+            build_slide_inputs,
+            synthetic_slide,
+        )
+
+        cfg = Config().apply_overrides(["model.compute_dtype=bfloat16"])
+        feats, coords = synthetic_slide(SLIDE_NUCLEI)
+        _SLIDE["inp"] = build_slide_inputs(cfg, feats, coords, 1, dev).inputs
+    return _SLIDE["inp"]
 
 
 def patch_batch(knn, bsr, seed: int = 0):
@@ -93,8 +122,11 @@ def patch_batch(knn, bsr, seed: int = 0):
 
 
 def device_ms(fn, calls: int = 10):
-    """Device ms per call of every kernel ``fn`` launches, from the kernel
-    events of a torch.profiler trace; None where it holds none."""
+    """(device ms per call of every kernel ``fn`` launches, {kernel name:
+    device ms per call}) from the kernel events of a torch.profiler trace;
+    (None, {}) where it holds none."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -106,19 +138,22 @@ def device_ms(fn, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / calls / 1e3 if us else None
+    split = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"(\w+)\s*[<(]", re.sub(r"^void\s+", "", e.name))
+        key = m.group(1) if m else e.name[:40]
+        split[key] = split.get(key, 0.0) + e.time_range.elapsed_us()
+    us = sum(split.values())
+    if not us:
+        return None, {}
+    return us / calls / 1e3, {k: v / calls / 1e3 for k, v in split.items()}
 
 
 def b2_legs(bsr, knn, dev, rnd) -> list:
     """(name, call) of every B2 leg (module docstring)."""
     import torch
-    from cgcnet_tpu_torch.config import Config
-    from cgcnet_tpu_torch.parallel.slide_setup import (
-        build_slide_inputs,
-        synthetic_slide,
-    )
 
     live_arg = "live_slots" in inspect.signature(bsr.bsr_matmul).parameters
 
@@ -128,9 +163,7 @@ def b2_legs(bsr, knn, dev, rnd) -> list:
         return lambda: bsr.bsr_matmul(vals, cols, x)
 
     legs = []
-    cfg = Config().apply_overrides(["model.compute_dtype=bfloat16"])
-    feats, coords = synthetic_slide(SLIDE_NUCLEI)
-    inp = build_slide_inputs(cfg, feats, coords, 1, dev).inputs
+    inp = slide_inputs(dev)
     nc, ns = inp.nbr_t.shape[0], inp.nbr_remap.shape[0]
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for f in (18, 40):
@@ -177,15 +210,14 @@ def b5_legs(ah, dev, rnd) -> list:
     import torch
 
     rows = -(-SLIDE_NUCLEI // 512) * 512
-    patch_real = [4000, 5760, 4800, 5321]
     shapes = [  # (tag, dtype, B, N, real rows per graph, C)
         ("slide full rows", torch.bfloat16, 1, rows, [SLIDE_NUCLEI], C),
         ("slide full rows", torch.float32, 1, rows, [SLIDE_NUCLEI], C),
         ("capacity chunk", torch.bfloat16, 1, 65536, [65536], C),
         ("capacity chunk", torch.bfloat16, 1, rows - 65536,
          [SLIDE_NUCLEI - 65536], C),
-        ("patch", torch.float32, PATCH_B, PATCH_N, patch_real, C),
-        ("patch", torch.bfloat16, PATCH_B, PATCH_N, patch_real, C),
+        ("patch", torch.float32, PATCH_B, PATCH_N, PATCH_REAL, C),
+        ("patch", torch.bfloat16, PATCH_B, PATCH_N, PATCH_REAL, C),
         # u and w read per vector, not held (C above 1280)
         ("slide full rows", torch.bfloat16, 1, rows, [SLIDE_NUCLEI], 2304),
     ]
@@ -199,6 +231,62 @@ def b5_legs(ah, dev, rnd) -> list:
         name = f"B5 {tag} {str(dt).split('.')[-1]} B={b} N={n} C={cc}"
         legs.append((name, lambda a=(p, dh, u, w, n_nodes):
                      ah.assign_tail_bwd(*a), bound))
+    return legs
+
+
+def b3_legs(ah, dev, rnd) -> list:
+    """(name, call, bound ms, p, n_nodes) of B3 (module docstring)."""
+    import torch
+
+    rows = -(-SLIDE_NUCLEI // 512) * 512
+    shapes = [  # (tag, dtype, B, N, real rows per graph)
+        ("slide", torch.bfloat16, 1, rows, [SLIDE_NUCLEI]),
+        ("slide", torch.float32, 1, rows, [SLIDE_NUCLEI]),
+        ("patch", torch.float32, PATCH_B, PATCH_N, PATCH_REAL),
+        ("patch", torch.bfloat16, PATCH_B, PATCH_N, PATCH_REAL),
+    ]
+    legs = []
+    for tag, dt, b, n, real in shapes:
+        n_nodes = torch.tensor(real, dtype=torch.int32, device=dev)
+        p = rnd(b, n, C).to(dt)
+        bound = sum(real) * C * p.element_size() / 3.35e12 * 1e3
+        name = f"B3 {tag} {str(dt).split('.')[-1]} B={b} N={n} C={C}"
+        legs.append((name, lambda p=p, nn=n_nodes: ah.l2relu_stats(p, nn),
+                     bound, p, n_nodes))
+    return legs
+
+
+def b1_legs(bsr, knn, dev) -> list:
+    """(name, call, bound ms) of B1 (module docstring)."""
+    import torch
+
+    t = bsr.TILE
+    nbr, w, cols, mask = (torch.from_numpy(a).to(dev)
+                          for a in patch_batch(knn, bsr))
+    inp = slide_inputs(dev)
+    row = torch.arange(inp.nbr_remap.shape[0], device=dev)
+    off = inp.nbr_mask * (inp.nbr_remap != row[:, None]).to(
+        inp.nbr_mask.dtype)
+    tr = inp.blk_cols_t.shape[0] * t
+    cases = [
+        ("patch A f32", (nbr, w, cols, mask, torch.float32)),
+        ("patch A bf16", (nbr, w, cols, mask, torch.bfloat16)),
+        ("slide int8 A", (inp.nbr_remap[None], off[None],
+                          inp.blk_cols[None], inp.blk_mask[None],
+                          torch.int8)),
+        ("slide int8 A^T", (inp.nbr_t[None, :tr], inp.mask_t[None, :tr],
+                            inp.blk_cols_t[None], inp.blk_mask_t[None],
+                            torch.int8)),
+    ]
+    legs = []
+    for tag, a in cases:
+        b, n, k = a[0].shape
+        r, m = a[2].shape[1:]
+        isz = torch.empty((), dtype=a[4]).element_size()
+        bytes_ = b * n * k * 8 + b * r * m * 8 + b * r * m * t * t * isz
+        legs.append((f"B1 {tag} B={b} N={n} K={k} M={m}",
+                     lambda a=a: bsr.bsr_build_blocks(*a),
+                     bytes_ / 3.35e12 * 1e3))
     return legs
 
 
@@ -244,14 +332,31 @@ def main() -> int:
         legs += [(n, fn, None) for n, fn in b9b_legs(ah, dev, rnd)]
     if "b5" in groups:
         legs += b5_legs(ah, dev, rnd)
+    sums = {}
+    if "b3" in groups:
+        for name, fn, bound, p, nn in b3_legs(ah, dev, rnd):
+            out = torch.stack(ah.l2relu_stats(p, nn))
+            sums[name] = hashlib.sha256(
+                out.cpu().numpy().tobytes()).hexdigest()[:16]
+            legs.append((name, fn, bound))
+    if "b1" in groups:
+        legs += b1_legs(bsr, knn, dev)
     for name, fn, bound in legs:
         ms = cs.time_ms(fn, reps=args.reps)
+        dev_ms, split = device_ms(fn)
         line = {"root": args.root, "leg": name, "ms": ms,
-                "device_ms": device_ms(fn), "device": smi}
+                "device_ms": dev_ms, "device": smi}
+        if len(split) > 1:
+            line["device_ms_by_kernel"] = split
         if bound is not None:
             line["bound_ms"] = bound
+            if dev_ms:
+                line["bound_share"] = bound / dev_ms
+        if name in sums:
+            line["sha256"] = sums[name]
         print(json.dumps(line), flush=True)
     del legs
+    _SLIDE.clear()
     torch.cuda.empty_cache()
     if "head" in groups:
         n_nodes = torch.tensor([SLIDE_NUCLEI], dtype=torch.int32, device=dev)

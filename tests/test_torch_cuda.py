@@ -12,7 +12,10 @@ the same slot order; int8 too), B2 1e-4, B3 1e-5, B4 1e-5, B5 1e-4, B6
 1e-5, B7 1e-4, B8 1e-4, B9a 1e-5, B9b 1e-5 (sums in another order); bf16 — the two roundings of the stored result may land one bf16
 step apart, up to 2^-7 of the value, so 2^-6. B9b in bf16 is also held
 against the exact (f64) statistics at ops/assign_head.STATS_TOL, and B5's
-rows past n_nodes are held to be exact zeros. Gradients, card vs CPU:
+rows past n_nodes are held to be exact zeros. B3's row norm is held bit
+for bit to B4's on the same p, and B1 bit for bit to its plain version
+computed on the CPU (on the card the plain version's scatter adds a
+column's slots in no fixed order). Gradients, card vs CPU:
 1e-4 of max|grad| (f32 sums in another order through the same formulas).
 """
 
@@ -761,3 +764,200 @@ def test_b5_matches_plain(device, dtype, b, n, cc, real, offset):
     for i, r in enumerate(real):
         assert not ref[i, r:].any() and not got[i, r:].any()
     assert torch.equal(ah.assign_tail_bwd(p, dh, u, w, nn_), got)
+
+
+# ---------------------------------------------------------------------------
+# B3: each real row read once; B1: one block per row tile
+# ---------------------------------------------------------------------------
+
+def _b3_probe(p, n_nodes):
+    """(sum, sumsq, rnorm [B*N] f32) of B3's kernel through its C entry with
+    the test-only row-norm output (each real row's norm; NaN elsewhere)."""
+    from cgcnet_tpu_torch.ops import _cuda
+
+    b, n, c = p.shape
+    partial = torch.empty((ah.STATS_BLOCKS, 2, c), dtype=torch.float32,
+                          device=p.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=p.device)
+    rn = torch.full((b * n,), float("nan"), device=p.device)
+    _cuda.launch("cgc_l2relu_stats", p.data_ptr(), n_nodes.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), rn.data_ptr(), b, n, c,
+                 ah.STATS_BLOCKS, _cuda.DTYPE_CODES[p.dtype],
+                 p.device.index or 0, _cuda.stream_of(p))
+    return out[0], out[1], rn
+
+
+def _b4_rnorm(p):
+    """B4's row norm of ``p`` [B, N, C] (its rnorm_kernel through the
+    head's C entry), f32 [B*N]."""
+    from cgcnet_tpu_torch.ops import _cuda
+
+    b, n, c = p.shape
+    rn = torch.empty((b * n,), dtype=torch.float32, device=p.device)
+    nn_ = torch.full((b,), n, dtype=torch.int32, device=p.device)
+    _cuda.launch("cgc_assign_head_rnorm", p.data_ptr(), None, None, None,
+                 None, nn_.data_ptr(), rn.data_ptr(), b, n, 0, c, 0, 0,
+                 _cuda.DTYPE_CODES[p.dtype], p.device.index or 0,
+                 _cuda.stream_of(p))
+    return rn
+
+
+def _b3_input(device, dtype, b, n, cc, seed, offset=0):
+    gen = torch.Generator().manual_seed(seed)
+    p = torch.randn((b, n, cc), generator=gen)
+    p[0, 3] = 0  # an all-zero row: the norm clamps
+    flat = torch.empty(p.numel() + offset, dtype=dtype, device=device)
+    out = flat[offset:].view(p.shape)
+    out.copy_(p)
+    return out
+
+
+@pytest.mark.parametrize("b,n,cc,real", [
+    (2, 640, 1140, [600, 123]),   # the model's C; n_nodes off the 64 grid
+    (2, 640, 114, [640, 77]),     # stage 2's C
+    (2, 640, 1141, [555, 640]),   # an odd C: one element a vector
+    (2, 384, 2600, [300, 384]),   # past the 1280 columns a pass holds
+    (3, 512, 1140, [0, 500, 0]),  # graphs with no real rows
+    (1, 100352, 1140, [100000]),  # the slide's rows
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_matches_plain(device, dtype, b, n, cc, real):
+    """B3 against its plain version at the TOL rule (f32 1e-5, bf16 2^-6),
+    the same bits on a second call, and bf16 B3 at the slide's rows against
+    the exact statistics at STATS_TOL; the new kernel ran."""
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    p = _b3_input(device, dtype, b, n, cc, seed=cc + b)
+    nn_ = torch.tensor(real, dtype=torch.int32, device=device)
+    launches = ah.l2relu_stats.launches
+    got = ah.l2relu_stats(p, nn_)
+    assert ah.l2relu_stats.launches == launches + 1
+    for o, r in zip(got, ah.l2relu_stats_plain(p, nn_)):
+        _close(o, r, tol)
+    again = ah.l2relu_stats(p, nn_)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    if n == 100352 and dtype == torch.bfloat16:
+        assert ah.stats_distance(
+            got, ah.l2relu_stats_reference(p, nn_)) <= ah.STATS_TOL
+    names = _kernel_names(lambda: ah.l2relu_stats(p, nn_))
+    assert any("stats_kernel" in k for k in names), names
+    assert not any("stats_partial_kernel" in k for k in names), names
+
+
+@pytest.mark.parametrize("cc,offset", [(1140, 0), (114, 0), (1141, 0),
+                                        (1140, 1), (2600, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_row_norm_is_b4s(device, dtype, cc, offset):
+    """B3's row norm (read through the test-only output of its C entry) is
+    B4's rnorm_kernel's on the same p, bit for bit, on every real row — so
+    h = round_T(relu(p) * rnorm) is the same in the statistics and the
+    head — in every vector width (p offset by one element: narrower
+    vectors) and past one pass's columns."""
+    p = _b3_input(device, dtype, 2, 640, cc, seed=7 + cc, offset=offset)
+    if offset:
+        assert p.data_ptr() % (2 * p.element_size())
+    nn_ = torch.tensor([600, 77], dtype=torch.int32, device=device)
+    *_, rn3 = _b3_probe(p, nn_)
+    rn4 = _b4_rnorm(p)
+    rows = (torch.arange(640, device=device)[None]
+            < nn_.long()[:, None]).reshape(-1)
+    assert torch.equal(rn3[rows], rn4[rows])
+    assert torch.isnan(rn3[~rows]).all()  # rows past n_nodes: not read
+    h3 = torch.clamp_min(p.float().reshape(-1, cc)[rows], 0) * rn3[rows, None]
+    h4 = torch.clamp_min(p.float().reshape(-1, cc)[rows], 0) * rn4[rows, None]
+    assert torch.equal(h3.to(dtype), h4.to(dtype))
+
+
+def test_b9b_f32_matches_plain(device):
+    """f32 B9b (B3's kernel with the LIN switch: each row's p formed once)
+    against its plain version at the TOL rule (1e-5), repeatable bit for
+    bit, with its row norm bit-equal to f32 B9a's (rnorm_kernel with LIN,
+    through the head's C entry) on every real row."""
+    from cgcnet_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(41)
+    n, f3, cc = 4096, 20, 1140
+    x3 = torch.relu(torch.randn((1, n, f3), generator=gen)).to(device)
+    kc3 = (torch.randn((f3, cc), generator=gen) * 0.3).to(device)
+    b3 = (torch.randn((cc,), generator=gen) * 0.1).to(device)
+    nn_ = torch.tensor([4000], dtype=torch.int32, device=device)
+    launches = ah.l2relu_stats_lin.launches
+    got = ah.l2relu_stats_lin(x3, kc3, b3, nn_)
+    assert ah.l2relu_stats_lin.launches == launches + 1
+    for o, r in zip(got, ah.l2relu_stats_lin_plain(x3, kc3, b3, nn_)):
+        _close(o, r, 1e-5)
+    again = ah.l2relu_stats_lin(x3, kc3, b3, nn_)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    partial = torch.empty((ah.STATS_BLOCKS, 2, cc), device=device)
+    out = torch.empty((2, cc), device=device)
+    rn9b = torch.full((n,), float("nan"), device=device)
+    _cuda.launch("cgc_l2relu_stats_lin", x3.data_ptr(), kc3.data_ptr(), None,
+                 b3.data_ptr(), nn_.data_ptr(), partial.data_ptr(),
+                 out.data_ptr(), rn9b.data_ptr(), 1, n, f3, cc, 0, 0,
+                 ah.STATS_BLOCKS, 0, device.index or 0, _cuda.stream_of(x3))
+    assert torch.equal(out, torch.stack(got))
+    rn9a = torch.empty((n,), device=device)
+    _cuda.launch("cgc_assign_head_rnorm", None, x3.data_ptr(), kc3.data_ptr(),
+                 None, b3.data_ptr(), nn_.data_ptr(), rn9a.data_ptr(), 1, n,
+                 f3, cc, 0, 0, 0, device.index or 0, _cuda.stream_of(x3))
+    assert torch.equal(rn9b[:4000], rn9a[:4000])
+
+
+def _b1_inputs(seed, k, m, spread=150, b=2, n=768, dead_tile=None,
+               dups=False, binary=False):
+    """B1's inputs: rows' K slots within ``spread`` of the row (spatially
+    local, as the kNN graphs are), f32 weights (signed; 0/1 when
+    ``binary``), block metadata at M = ``m`` slots a row tile; optionally
+    every slot of row tile ``dead_tile`` dead and duplicate columns in a
+    row."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(n)[:, None]
+    lo, hi = (0, n - 1) if m > 1 else (rows // 128 * 128, rows // 128 * 128
+                                       + 127)  # M = 1: the row's own tile
+    nbr = np.clip(rows + rng.integers(-spread, spread + 1, (b, n, k)), lo,
+                  hi).astype(np.int32)
+    if binary:
+        w = (rng.uniform(size=(b, n, k)) > 0.3).astype(np.float32)
+    else:
+        w = rng.normal(size=(b, n, k)).astype(np.float32)
+    if dups:
+        nbr[:, 5, 3] = nbr[:, 5, 1]          # two slots name one column
+        nbr[:, 200, 1:4] = nbr[:, 200, :1]   # four do
+        w[:, 200, :4] = 1.0
+    cols, masks = zip(*(bsr.bsr_block_meta(nbr[i], np.ones((n, k)), m)[:2]
+                        for i in range(b)))
+    cols, masks = np.stack(cols), np.stack(masks)
+    if dead_tile is not None:
+        masks[:, dead_tile] = 0
+    return [torch.from_numpy(a) for a in (nbr, w, cols, masks)]
+
+
+@pytest.mark.parametrize("k,m,spread,extra", [
+    (9, 6, 150, {}),                   # the patch path's K
+    (40, 6, 150, {}),                  # a transpose's KT past 32
+    (70, 6, 150, {}),                  # past the two chunks held
+    (9, 6, 150, {"dups": True}),       # duplicate columns of one row sum
+    (9, 6, 150, {"dead_tile": 2}),     # a row tile whose every slot is dead
+    (9, 1, 40, {}),                    # M = 1
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_b1_matches_plain_exactly(device, dtype, k, m, spread, extra):
+    """B1 bit-equal to its plain version on the CPU (the same f32 sums in
+    slot order, rounded or truncated once; the plain version's scatter on
+    the card adds a column's slots in no fixed order), dead slots exact
+    zeros, in f32, bf16 and int8 (binary weights, as the slide's
+    operator)."""
+    host = _b1_inputs(k + m, k, m, spread, binary=dtype == torch.int8,
+                      **extra)
+    args = [t.to(device) for t in host]
+    masks = args[3]
+    if "dead_tile" in extra:
+        assert not masks[:, extra["dead_tile"]].any()
+    launches = bsr.bsr_build_blocks.launches
+    got = bsr.bsr_build_blocks(*args, dtype)
+    assert bsr.bsr_build_blocks.launches == launches + 1
+    ref = bsr.bsr_build_blocks_plain(*host, dtype).to(device)
+    assert got.dtype == dtype
+    assert torch.equal(got, ref)
+    assert not got[masks == 0].any()
+    if dtype == torch.int8 and "dups" in extra:
+        assert (got > 1).any()  # the duplicates summed, then truncated

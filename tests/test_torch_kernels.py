@@ -76,6 +76,47 @@ def test_b1_build_blocks_matches_pallas(batch, dtype):
     assert not out.float().numpy()[pad].any()
 
 
+@pytest.mark.parametrize("case,dtype", [
+    ("dead_tile", "float32"),   # every slot of one row tile dead
+    ("kt_40", "bfloat16"),      # a transpose's KT past 32 slots a row
+    ("dups", "int8"),           # duplicate columns summed, then truncated
+    ("m_1", "float32"),         # one slot per row tile
+])
+def test_b1_edge_cases_match_pallas(case, dtype):
+    """B1's plain version bit-equal to the Pallas function (interpret mode)
+    where the block build has its edges: a dead row tile, more than 32 ELL
+    slots a row, duplicate columns in int8, M = 1."""
+    rng = np.random.default_rng(len(case))
+    n, k = 512, 40 if case == "kt_40" else 9
+    rows = np.arange(n)[:, None]
+    if case == "m_1":  # every slot in the row's own tile
+        lo, hi = rows // 128 * 128, rows // 128 * 128 + 127
+    else:
+        lo, hi = 0, n - 1
+    nbr = np.clip(rows + rng.integers(-150, 151, (1, n, k)), lo,
+                  hi).astype(np.int32)
+    if dtype == "int8":
+        w = (rng.uniform(size=(1, n, k)) > 0.3).astype(np.float32)
+    else:
+        w = rng.normal(size=(1, n, k)).astype(np.float32)
+    if case == "dups":
+        nbr[0, 7, 1:5] = nbr[0, 7, 0]
+        w[0, 7, :5] = 1.0
+    m = 1 if case == "m_1" else 6
+    cols, msk, _ = tbsr.bsr_block_meta(nbr[0], np.ones((n, k)), m)
+    if case == "dead_tile":
+        msk[1] = 0
+    args = (nbr, w, cols[None], msk[None])
+    out = tbsr.bsr_build_blocks(*(_t(a) for a in args), getattr(torch, dtype))
+    ref = bk.bsr_build_blocks(*(jnp.asarray(a) for a in args),
+                              jnp.dtype(dtype))
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+    assert not out.float().numpy()[msk[None] == 0].any()
+    if case == "dups":
+        assert out[0, 0].max() >= 5  # the five copies of one column
+
+
 @pytest.mark.parametrize("f,extra_rows", [(18, 0), (40, 0), (300, 0), (40, 128)])
 def test_b2_bsr_matmul_matches_pallas(batch, f, extra_rows):
     w = stage1_weights(batch)
