@@ -36,9 +36,10 @@
 //      (~5 GFLOP at 100k nuclei, F3 = 20). rnorm_kernel: one warp per row
 //      through common.cuh's row_rnorm, the routine of B3's statistics too,
 //      so the statistics and the head form the same h (B4: p read in the
-//      widest vectors the row width and base allow; B9a in f32: p formed
-//      per column from x3 staged in shared memory and kc3, as f32 B9b
-//      forms it);
+//      widest vectors the row width and base allow); B9a in f32: the same
+//      kernel with LIN, p formed by lin_p's chain for 8 rows x 4 columns a
+//      lane at a time through common.cuh's rows_rnorm (row_rnorm's order,
+//      so f32 B9b's norm bit for bit), kc3 and b3 staged once a block;
 //      rnorm_lin_tc_kernel (B9a in bf16): p by mma.sync through
 //      tc.cuh's lin_p_mma, the routine of the product too, so norm and
 //      product read the same p, and the norm by tc.cuh's lin_rnorm, the
@@ -65,13 +66,11 @@
 //      P), instead of the 9x SIMT recomputation. p's rows are 2,280 bytes
 //      at C = 1140 (8-byte aligned): the A tiles arrive by the widest
 //      cp.async the widths and base addresses allow (8 bytes there).
-//      f32: gemm_kernel, a 128x128 output tile per block, k-steps of 32
-//      over x12 @ K12 and then h @ K3f (B4: h formed on load from p and the
-//      tile's rnorm; B9a: p itself formed on load from the tile's x3 rows,
-//      staged in shared memory, and a kc3 column held in registers; B6: h3a
-//      as it is), 8x8 f32 register tile per thread, each thread's global
-//      loads of a k-step issued together into registers (f32 on the tensor
-//      cores would mean TF32, which the f32 tolerances do not allow);
+//      f32: gemm_kernel on the CUDA cores (f32 on the tensor cores would
+//      mean TF32, which the f32 tolerances do not allow): a 128 x 192 tile,
+//      an 8 x 12 register tile a thread, W by cp.async, A made a k-step
+//      ahead (B4's h, B6's h3a, B9a's p formed beside the FMAs); the
+//      section "f32 product on the CUDA cores" below;
 //   3. the softmax, one warp per row, S in T, zeros past C and on rows past
 //      n_nodes, in place in f32 when c_out == C (each lane reads an element
 //      before it writes it). softmax_rows_kernel (C <= 1536): the row read
@@ -80,6 +79,7 @@
 // S^T is not written: the caller takes S.transpose(1, 2) as a view.
 
 #include <algorithm>
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -87,7 +87,7 @@
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kThreads = 256;
+constexpr int kBM = 128, kThreads = 256;
 
 // The x3 operand of B9a: x3 [rows, F3], kc3 [F3, C], b3 [C] in T.
 template <typename T>
@@ -98,165 +98,505 @@ struct Lin {
   int F3;
 };
 
-// One warp per row: the row norm by cgc::row_rnorm, B3's routine — p read
-// in vectors of E (cgc::row_vec: the width B3 reads the same p in), or
-// (LIN, E = 1) p formed per column from the row's x3 by cgc::lin_p.
+// The largest dynamic shared memory a block of ``Kernel`` may ask for,
+// allowed once per device (not on every launch: the patch path is bound by
+// the host's launches).
+template <auto Kernel>
+cudaError_t allow_smem(int device) {
+  static std::mutex mu;
+  static uint64_t done = 0;  // a bit per device
+  std::lock_guard<std::mutex> lock(mu);
+  if (device < 64 && (done >> device & 1)) return cudaSuccess;
+  int most;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess && device < 64) done |= uint64_t{1} << device;
+  return err;
+}
+
+// f32 B9a's row norm: rows a warp takes at once, columns a lane takes at
+// once, and the shared memory a block keeps to (two blocks an SM): kc3 [F3
+// x cs] and b3 [cs] of a column slice of cs columns (all of C when it
+// fits; a multiple of 32 * kRnCols), and each warp's x3 rows. Each x3 value
+// a lane loads serves kRnCols products and each kc3 value kRnRows: shared
+// memory, which hands an SM 128 bytes a cycle however many lanes read one
+// address, bounds the kernel.
+constexpr int kRnRows = 8, kRnCols = 6;
+constexpr int kRnSmem = 100 * 1024;
+// x3 rows in shared memory: F3 rounded up to 4 floats, to an odd number of
+// 16-byte chunks, so the LDS.128 of 8 consecutive rows hit 8 bank groups
+__host__ __device__ constexpr int x3_stride(int F3) {
+  const int s = (F3 + 3) / 4 * 4;
+  return s % 8 ? s : s + 4;
+}
+
+// The row norm. !LIN: one warp per row by cgc::row_rnorm, B3's routine — p
+// read in vectors of E (cgc::row_vec: the width B3 reads the same p in).
+// LIN (f32 B9a, E = 1): a grid-stride loop over groups of kThreads / 32 *
+// kRnRows rows; the block stages kc3 and b3 (a column slice of cs columns
+// at a time when all of C does not fit, then restaged for each group), each
+// warp its kRnRows rows of x3, and cgc::rows_rnorm forms the rows' norms
+// together, kRnCols columns a lane at a time; each p is cgc::lin_p's fmaf
+// chain (k ascending, then the bias), so each norm is row_rnorm<1>'s over
+// lin_p's p, bit for bit (f32 B9b's).
 template <typename T, int E, bool LIN>
 __global__ void __launch_bounds__(kThreads)
     rnorm_kernel(const T* __restrict__ p, Lin<T> lin,
-                 float* __restrict__ rnorm, long long rows, int C) {
-  extern __shared__ float s_x3[];  // LIN: [kThreads / 32][F3]
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+                 float* __restrict__ rnorm, long long rows, int C, int cs) {
+  extern __shared__ __align__(16) float s_rn[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (row >= rows) return;
-  float rn;
   if constexpr (LIN) {
-    float* xs = s_x3 + warp * lin.F3;
-    for (int k = lane; k < lin.F3; k += 32)
-      xs[k] = cgc::to_f32(lin.x3[row * lin.F3 + k]);
-    __syncwarp();
-    rn = cgc::row_rnorm<1>(C, lane, [&](int c, float(&x)[1]) {
-      x[0] = cgc::lin_p(xs, lin.kc3, lin.b3, lin.F3, C, c);
-    });
+    constexpr int kWarps = kThreads / 32, kGroup = kWarps * kRnRows;
+    const int F3 = lin.F3, xs = x3_stride(F3);
+    float* ks = s_rn;                          // [F3][cs], then b3 [cs]
+    float* x3s = ks + (F3 + 1) * cs + warp * kRnRows * xs;  // [kRnRows][xs]
+    const int slices = (C + cs - 1) / cs;
+    auto stage = [&](int c0) {
+      const int w = min(cs, C - c0);
+      for (int e = threadIdx.x; e < (F3 + 1) * w; e += kThreads) {
+        const int k = e / w, c = e % w;
+        ks[k * cs + c] = cgc::to_f32(k < F3 ? lin.kc3[static_cast<long long>(
+                                                  k) * C + c0 + c]
+                                            : lin.b3[c0 + c]);
+      }
+    };
+    if (slices == 1) stage(0);
+    const long long groups = rows / kGroup;  // rows % 128 == 0
+    for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+      const long long r0 = g * kGroup + warp * kRnRows;
+      __syncwarp();  // the last group's rows are read
+      for (int e = lane; e < kRnRows * xs; e += 32) {
+        const int r = e / xs, k = e % xs;
+        x3s[e] = k < F3 ? cgc::to_f32(lin.x3[(r0 + r) * F3 + k]) : 0.f;
+      }
+      if (slices == 1 && g == blockIdx.x)
+        __syncthreads();  // the block's first group: kc3 and b3 staged
+      else
+        __syncwarp();  // the rows' x3
+      float ss[kRnRows] = {};
+      for (int sl = 0; sl < slices; ++sl) {
+        const int c0 = sl * cs;
+        if (slices > 1) {
+          __syncthreads();  // the last slice is read
+          stage(c0);
+          __syncthreads();
+        }
+        // columns c + 32 j of the slice (j < kRnCols), all below cs (a
+        // multiple of 32 * kRnCols); rows_rnorm adds those below C only
+        cgc::rows_rnorm<kRnRows, kRnCols>(
+            ss, lane, min(cs, C - c0),
+            [&](int c, float(&x)[kRnCols][kRnRows]) {
+              float acc[kRnCols][kRnRows] = {};
+              for (int k4 = 0; k4 < F3; k4 += 4) {
+                float kv[4][kRnCols];
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+#pragma unroll
+                  for (int j = 0; j < kRnCols; ++j)
+                    kv[u][j] = k4 + u < F3 ? ks[(k4 + u) * cs + c + 32 * j]
+                                           : 0.f;
+#pragma unroll
+                for (int r = 0; r < kRnRows; ++r) {
+                  const float4 xv =
+                      *reinterpret_cast<const float4*>(x3s + r * xs + k4);
+                  const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+                  for (int u = 0; u < 4; ++u)
+                    if (k4 + u < F3)
+#pragma unroll
+                      for (int j = 0; j < kRnCols; ++j)
+                        acc[j][r] = fmaf(xr[u], kv[u][j], acc[j][r]);
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < kRnCols; ++j) {
+                const float bias = ks[F3 * cs + c + 32 * j];
+#pragma unroll
+                for (int r = 0; r < kRnRows; ++r)
+                  x[j][r] =
+                      cgc::round_to<T>(cgc::round_to<T>(acc[j][r]) + bias);
+              }
+            });
+      }
+      float rn[kRnRows];
+      cgc::rows_rnorm_finish<kRnRows>(ss, rn);
+      if (lane < kRnRows) {
+#pragma unroll
+        for (int r = 0; r < kRnRows; ++r)
+          if (r == lane) rnorm[r0 + r] = rn[r];
+      }
+    }
   } else {
+    const long long row =
+        (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+    if (row >= rows) return;
     const T* pr = p + row * C;
-    rn = cgc::row_rnorm<E>(C / E, lane, [&](int v, float(&x)[E]) {
+    const float rn = cgc::row_rnorm<E>(C / E, lane, [&](int v, float(&x)[E]) {
       cgc::load_vec<T, E>(x, pr + v * E);
     });
-  }
-  if (lane == 0) rnorm[row] = rn;
-}
-
-// One k-step of the 128x128 tile: 8x8 outer products per thread.
-__device__ __forceinline__ void tile_fma(const float (&As)[kBK][kBM + 1],
-                                         const float (&Bs)[kBK][kBN], int tx,
-                                         int ty, float (&acc)[8][8]) {
-#pragma unroll 8
-  for (int kk = 0; kk < kBK; ++kk) {
-    float av[8], bv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = As[kk][ty * 8 + i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    if (lane == 0) rnorm[row] = rn;
   }
 }
 
-// acc += A[row0 : row0+128, 0:kdim] @ W[0:kdim, col0 : col0+128], A row
-// stride lda. HEAD: A is the raw p, formed into h = round_T(relu(p)*rnorm)
-// on load; LIN (with HEAD): p itself is formed from the tile's x3 rows
-// (s_x3, [kBM][F3]) and column k of kc3. Each thread owns a fixed k column
-// of the A slice (t % 32) and a fixed output column of the W slice
-// (t % 128), so its 16 + 16 loads per k-step are issued together into
-// registers before any shared-memory store.
-template <typename T, bool HEAD, bool LIN>
-__device__ __forceinline__ void gemm_part(
-    const T* __restrict__ a, int lda, const T* __restrict__ w, int ldw,
-    int kdim, long long row0, int col0, int ncols, const float* s_rn,
-    const float* s_x3, const Lin<T>& lin, float (&As)[kBK][kBM + 1],
-    float (&Bs)[kBK][kBN], float (&acc)[8][8]) {
-  constexpr int kAPer = kBM * kBK / kThreads;   // 16 A values per thread
-  constexpr int kBPer = kBK * kBN / kThreads;   // 16 W values per thread
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int a_k = t % kBK, a_r = t / kBK;       // A rows a_r + 8 i
-  const int b_c = t % kBN, b_k = t / kBN;       // W rows b_k + 2 i
-  const bool col_ok = col0 + b_c < ncols;
-  for (int k0 = 0; k0 < kdim; k0 += kBK) {
-    float va[kAPer], vb[kBPer];
-    const bool a_ok = k0 + a_k < kdim;
-    if (LIN) {
-#pragma unroll
-      for (int i = 0; i < kAPer; ++i) va[i] = 0.f;
-      if (a_ok) {
-        const int c = k0 + a_k;
-        for (int k = 0; k < lin.F3; ++k) {
-          const float wk =
-              cgc::to_f32(lin.kc3[static_cast<long long>(k) * kdim + c]);
-#pragma unroll
-          for (int i = 0; i < kAPer; ++i)
-            va[i] = fmaf(s_x3[(a_r + (kThreads / kBK) * i) * lin.F3 + k], wk,
-                         va[i]);
-        }
-        const float bias = cgc::to_f32(lin.b3[c]);
-#pragma unroll
-        for (int i = 0; i < kAPer; ++i)
-          va[i] = cgc::round_to<T>(cgc::round_to<T>(va[i]) + bias);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kAPer; ++i) {
-        const long long row = row0 + a_r + (kThreads / kBK) * i;
-        va[i] = a_ok ? cgc::to_f32(a[row * lda + k0 + a_k]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBPer; ++i) {
-      const int k = k0 + b_k + (kThreads / kBN) * i;
-      vb[i] = (col_ok && k < kdim)
-                  ? cgc::to_f32(w[static_cast<long long>(k) * ldw + col0 + b_c])
-                  : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kAPer; ++i) {
-      const int r = a_r + (kThreads / kBK) * i;
-      float v = va[i];
-      if (HEAD) v = cgc::round_to<T>(fmaxf(v, 0.f) * s_rn[r]);
-      As[a_k][r] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < kBPer; ++i) Bs[b_k + (kThreads / kBN) * i][b_c] = vb[i];
-    __syncthreads();
-    tile_fma(As, Bs, tx, ty, acc);
-    __syncthreads();
-  }
+// ---- f32 product on the CUDA cores ----
+//
+// logits[row0 : row0+128, col0 : col0+kFN] = [x12 | A3] @ [K12 ; K3f] +
+// const, strict f32 (no tensor cores: TF32 is not f32). Shared memory
+// hands each SM 128 bytes a cycle to the registers, a broadcast included,
+// so a SIMT product is bound by the values a thread loads per FFMA: an 8 x
+// 12 register tile loads 20 floats per 96 FFMAs (8 x 8: 16 per 64, as many
+// cycles of loads as of FMAs). One K loop over ceil(F12 / kFK) steps of
+// x12 @ K12 and then ceil(C / kFK) of A3 @ K3f, each part zero-filled past
+// its end (the FMAs of its last step's 4-k groups of zeros skipped). Per
+// k-step of kFK rows:
+//   - W's [kFK x kFN] tile (and, B9a, kc3's [F3 x kFK] slice with b3's kFK
+//     values) by cp.async into a ring of kFStages stages, issued
+//     kFStages - 1 steps ahead, VEC floats a copy;
+//   - A's [128 x kFK] tile through registers: x12 as it is; B4 h =
+//     round_T(relu(p) * rnorm) from raw p; B6 h3a as it is. The next step's
+//     global loads are issued before this step's FMAs and stored
+//     (transformed) after them, into the other of two A buffers: one
+//     __syncthreads a k-step. B9a's p is formed from the tile's x3 rows
+//     (staged once a block) and the stage's kc3 slice, a thread 4 rows x
+//     kFC columns (each x3 and kc3 value it loads serves 4 or kFC
+//     products), by lin_p's chain (the row norm's p, bit for bit), then h:
+//     four k of the chain beside each four k of this step's FMAs, so its
+//     shared-memory loads run beside FMAs, not in a phase of their own;
+//   - A is stored k-major [kFK][128], its 4-row chunks XOR-swizzled by k,
+//     so a warp's transposing stores hit every bank; each thread holds an 8
+//     x 4*kFJ register tile (rows 4ty..+3 and 64+4ty..+3, columns 4(tx +
+//     kFTX j)..+3), read per k as 2 + kFJ LDS.128 (a warp: 4 ty x 8 tx).
+constexpr int kFK = 32;                       // K rows a k-step
+constexpr int kFStages = 4;                   // cp.async stages of W
+constexpr int kFJ = 3;                        // 4-column groups a thread
+constexpr int kFTX = 16;                      // threads along the columns
+constexpr int kFThreads = 16 * kFTX;          // 16 along the rows
+constexpr int kFN = 4 * kFJ * kFTX;           // output columns of a block
+constexpr int kFQ = kFK / 4;                  // float4s of a row's k-step
+constexpr int kFRows = kFThreads / kFQ;       // A rows one load pass covers
+constexpr int kFPass = kBM / kFRows;          // A load passes a step
+constexpr int kFC = kBM * kFK / (4 * kFThreads);  // B9a: p columns a thread
+constexpr int kFCG = kFK / kFC;               // B9a: column groups
+static_assert(kFK == 16 || kFK == 32, "the A swizzle covers 16 or 32");
+static_assert(kFC == 2 || kFC == 4, "B9a forms p in float2 or float4");
+
+__host__ __device__ constexpr size_t f32_smem(bool lin, int F3) {
+  return sizeof(float) *
+         (static_cast<size_t>(kFStages) * kFK * kFN + 2 * kFK * kBM +
+          (lin ? static_cast<size_t>(kFStages) * (F3 + 1) * kFK +
+                     static_cast<size_t>(kBM) * x3_stride(F3)
+               : 0));
 }
 
-template <typename T, bool PRE, bool LIN>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(
-    const T* __restrict__ x12, const T* __restrict__ p, Lin<T> lin,
-    const float* __restrict__ rnorm, const T* __restrict__ k12,
-    const T* __restrict__ k3f, const float* __restrict__ cnst,
-    const int* __restrict__ n_nodes, float* logits, int N, int F12, int C) {
-  __shared__ float As[kBK][kBM + 1];
-  __shared__ float Bs[kBK][kBN];
-  __shared__ float s_rn[kBM];
-  extern __shared__ float s_x3[];  // LIN: [kBM][F3]
+template <bool PRE, bool LIN, int VEC>
+__global__ void __launch_bounds__(kFThreads, 1) gemm_kernel(
+    const float* __restrict__ x12, const float* __restrict__ p,
+    Lin<float> lin, const float* __restrict__ rnorm,
+    const float* __restrict__ k12, const float* __restrict__ k3f,
+    const float* __restrict__ cnst, const int* __restrict__ n_nodes,
+    float* logits, int N, int F12, int C, bool vec_out) {
+  using cgc::tc::cp_async;
+  using cgc::tc::smem_u32;
+  extern __shared__ __align__(16) float smem_f[];
+  float* ws = smem_f;                                 // [stages][kFK][kFN]
+  float* as = ws + kFStages * kFK * kFN;              // [2][kFK][kBM]
+  float* ls = as + 2 * kFK * kBM;                     // [stages][F3+1][kFK]
+  float* x3s = ls + kFStages * (lin.F3 + 1) * kFK;    // [kBM][x3_stride]
 
   const long long row0 = static_cast<long long>(blockIdx.y) * kBM;
   const long long b = row0 / N;  // N % 128 == 0: a tile lies in one graph
   if (row0 - b * N >= n_nodes[b]) return;  // every row of the tile is padding
-  const int col0 = blockIdx.x * kBN;
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  if (PRE && t < kBM) s_rn[t] = rnorm[row0 + t];
-  if (LIN) {
-    for (int e = t; e < kBM * lin.F3; e += kThreads)
-      s_x3[e] = cgc::to_f32(lin.x3[row0 * lin.F3 + e]);
-  }
-  __syncthreads();
+  const int col0 = blockIdx.x * kFN;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int tx = (warp % (kFTX / 8)) * 8 + lane % 8;
+  const int ty = (warp / (kFTX / 8)) * 4 + lane / 8;
+  const int lr = t / kFQ, lq = t % kFQ;  // loads: rows lr + kFRows i, k 4lq..
+  const int fr = 4 * (t / kFCG), fc = kFC * (t % kFCG);  // B9a: p's rows, k
+  const int nk12 = (F12 + kFK - 1) / kFK;
+  const int nk = nk12 + (C + kFK - 1) / kFK;
+  const int F3 = lin.F3, xs = LIN ? x3_stride(F3) : 0;
 
-  float acc[8][8];
+  // the swizzle of k's row chunks, and element (k, row) of an A buffer
+  auto swz = [](int k) { return ((k >> 2) * (32 / kFK)) & 7; };
+  auto a_at = [&](int k, int row) {
+    return k * kBM + (((row >> 2) ^ swz(k)) << 2) + (row & 3);
+  };
+  // stage kt: W's rows of the step, and (B9a, A3 part) kc3's slice and b3
+  auto load_w = [&](int kt) {
+    const int st = kt % kFStages;
+    const bool part12 = kt < nk12;
+    const int k0 = (part12 ? kt : kt - nk12) * kFK;
+    const float* src = part12 ? k12 : k3f;
+    const int klim = part12 ? F12 : C;
+    constexpr int kPer = kFN / VEC;
+    const uint32_t dst = smem_u32(ws + st * kFK * kFN);
+    auto copy = [&](int e) {
+      const int kk = e / kPer, c = (e % kPer) * VEC;
+      const bool ok = k0 + kk < klim && col0 + c < C;
+      cp_async<4 * VEC>(dst + 4 * (kk * kFN + c),
+                        ok ? src + static_cast<long long>(k0 + kk) * C +
+                                 col0 + c
+                           : src,
+                        ok);
+    };
+    // narrower copies are more a thread: a rolled loop, so their
+    // addresses are not all kept in registers across the k-steps
+    if constexpr (VEC == 4) {
+#pragma unroll
+      for (int e = t; e < kFK * kPer; e += kFThreads) copy(e);
+    } else {
+#pragma unroll 1
+      for (int e = t; e < kFK * kPer; e += kFThreads) copy(e);
+    }
+    if (LIN && !part12) {
+      constexpr int kLPer = kFK / VEC;
+      const uint32_t ldst = smem_u32(ls + st * (F3 + 1) * kFK);
+      for (int e = t; e < (F3 + 1) * kLPer; e += kFThreads) {
+        const int k = e / kLPer, c = (e % kLPer) * VEC;
+        const bool ok = k0 + c < C;
+        const float* s = k < F3 ? lin.kc3 + static_cast<long long>(k) * C
+                                : lin.b3;
+        cp_async<4 * VEC>(ldst + 4 * (k * kFK + c), ok ? s + k0 + c : s, ok);
+      }
+    }
+  };
+  // step kt of x12, or (not B9a) of p / h3a, into registers: rows lr +
+  // kFRows i, columns 4lq..4lq+3 of the step
+  auto load_a = [&](int kt, float (&ra)[kFPass][4]) {
+    if (kt < nk12) {
+      const int k = kt * kFK + 4 * lq;
+#pragma unroll
+      for (int i = 0; i < kFPass; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ra[i][e] = k + e < F12
+                         ? x12[(row0 + lr + kFRows * i) * F12 + k + e]
+                         : 0.f;
+    } else {
+      const int c = (kt - nk12) * kFK + 4 * lq;
+#pragma unroll
+      for (int i = 0; i < kFPass; ++i) {
+        const float* src = p + (row0 + lr + kFRows * i) * C + c;
+#pragma unroll
+        for (int v = 0; v < 4; v += VEC) {
+          float x[VEC];
+          if (c + v < C) {
+            cgc::load_vec<float, VEC>(x, src + v);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) x[e] = 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) ra[i][v + e] = x[e];
+        }
+      }
+    }
+  };
+  float rn[kFPass];  // B4: rows lr + kFRows i
+#pragma unroll
+  for (int i = 0; i < kFPass; ++i) rn[i] = 1.f;
+  auto store_a = [&](int kt, const float (&ra)[kFPass][4]) {
+    float* dst = as + (kt % 2) * kFK * kBM;
+    const bool head = PRE && !LIN && kt >= nk12;
+#pragma unroll
+    for (int i = 0; i < kFPass; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = ra[i][e];
+        if (head) v = fmaxf(v, 0.f) * rn[i];
+        dst[a_at(4 * lq + e, lr + kFRows * i)] = v;
+      }
+  };
+  float acc[8][4 * kFJ];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4 * kFJ; ++j) acc[i][j] = 0.f;
 
-  gemm_part<T, false, false>(x12, F12, k12, C, F12, row0, col0, C, s_rn,
-                             s_x3, lin, As, Bs, acc);
-  gemm_part<T, PRE, LIN>(p, C, k3f, C, C, row0, col0, C, s_rn, s_x3, lin, As,
-                         Bs, acc);
+  // B9a: p of rows fr..fr+3, columns fc..fc+kFC-1 of a step, by lin_p's
+  // chain (fmaf over k ascending from 0, then the bias), then h. l: the
+  // step's kc3 slice at the thread's columns. Four k of the chain (x3 of
+  // each row in one LDS.128), or one:
+  auto chain4 = [&](const float* l, int k4, float (&pa)[4][kFC]) {
+    float xv[4][4];  // [row][k]
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(x3s + (fr + r) * xs + k4);
+      xv[r][0] = v.x, xv[r][1] = v.y, xv[r][2] = v.z, xv[r][3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float wv[kFC];
+      cgc::load_vec<float, kFC>(wv, l + (k4 + u) * kFK);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < kFC; ++j)
+          pa[r][j] = fmaf(xv[r][u], wv[j], pa[r][j]);
+    }
+  };
+  auto chain1 = [&](const float* l, int k, float (&pa)[4][kFC]) {
+    float wv[kFC];
+    cgc::load_vec<float, kFC>(wv, l + k * kFK);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < kFC; ++j)
+        pa[r][j] = fmaf(x3s[(fr + r) * xs + k], wv[j], pa[r][j]);
+  };
+  // then p = chain + b3, h = round_T(relu(p) * rnorm) into A buffer kt % 2
+  // (the rows' norms read here, not held in registers across the FMAs)
+  auto form_put = [&](int kt, const float* l, const float (&pa)[4][kFC]) {
+    float bias[kFC], rv[4];
+    cgc::load_vec<float, kFC>(bias, l + F3 * kFK);
+    cgc::load_vec<float, 4>(rv, rnorm + row0 + fr);
+    float* dst = as + (kt % 2) * kFK * kBM;
+#pragma unroll
+    for (int j = 0; j < kFC; ++j) {
+      float4 h;
+      h.x = fmaxf(pa[0][j] + bias[j], 0.f) * rv[0];
+      h.y = fmaxf(pa[1][j] + bias[j], 0.f) * rv[1];
+      h.z = fmaxf(pa[2][j] + bias[j], 0.f) * rv[2];
+      h.w = fmaxf(pa[3][j] + bias[j], 0.f) * rv[3];
+      *reinterpret_cast<float4*>(dst + a_at(fc + j, fr)) = h;
+    }
+  };
+  // four k of the chain: with x3 in 16-byte loads where C is a multiple
+  // of 4, else a k at a time (fewer registers where the copies are
+  // narrow, which take more)
+  auto chain = [&](const float* l, int k4, float (&pa)[4][kFC]) {
+    if constexpr (VEC == 4) {
+      chain4(l, k4, pa);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) chain1(l, k4 + u, pa);
+    }
+  };
+  auto slice = [&](int kt) {
+    return ls + (kt % kFStages) * (F3 + 1) * kFK + fc;
+  };
+  // 4 k of a step's FMAs, k = 4g..4g+3 (one swizzle)
+  auto fma4 = [&](const float* a, const float* w, int g) {
+    const int sw = swz(4 * g);
+    const float* a0p = a + 4 * g * kBM + ((ty ^ sw) << 2);
+    const float* a1p = a + 4 * g * kBM + (((ty + 16) ^ sw) << 2);
+    const float* bp = w + 4 * g * kFN + (tx << 2);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 a0 = *reinterpret_cast<const float4*>(a0p + u * kBM);
+      const float4 a1 = *reinterpret_cast<const float4*>(a1p + u * kBM);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int j = 0; j < kFJ; ++j) {
+        const float4 bq = *reinterpret_cast<const float4*>(
+            bp + u * kFN + 4 * kFTX * j);
+        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][4 * j + e] = fmaf(av[i], bv[e], acc[i][4 * j + e]);
+      }
+    }
+  };
+
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < nk) load_w(s);
+    cgc::tc::cp_async_commit();
+  }
+  if (PRE && !LIN) {
+#pragma unroll
+    for (int i = 0; i < kFPass; ++i) rn[i] = rnorm[row0 + lr + kFRows * i];
+  }
+  if (LIN) {
+    for (int e = t; e < kBM * xs; e += kFThreads) {
+      const int r = e / xs, k = e % xs;
+      x3s[e] = k < F3 ? lin.x3[(row0 + r) * F3 + k] : 0.f;
+    }
+  }
+  if (LIN && nk12 == 0) {
+    cgc::tc::cp_async_wait<kFStages - 2>();
+    __syncthreads();  // x3 and step 0's kc3 slice
+    float pa[4][kFC] = {};
+    for (int k = 0; k < F3; ++k) chain1(slice(0), k, pa);
+    form_put(0, slice(0), pa);
+  } else {
+    float ra[kFPass][4];
+    load_a(0, ra);
+    store_a(0, ra);
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    // step kt's W landed (B9a: step kt+1's kc3 slice too, formed below);
+    // every thread stored A's step kt and is done with step kt-1
+    if (LIN)
+      cgc::tc::cp_async_wait<kFStages - 3>();
+    else
+      cgc::tc::cp_async_wait<kFStages - 2>();
+    __syncthreads();
+    if (kt + kFStages - 1 < nk) load_w(kt + kFStages - 1);
+    cgc::tc::cp_async_commit();
+    const bool next = kt + 1 < nk;
+    const bool formed = LIN && kt + 1 >= nk12;
+    const float* a = as + (kt % 2) * kFK * kBM;
+    const float* w = ws + (kt % kFStages) * kFK * kFN;
+    // the step's 4-k groups that hold a k below F12 or C (the rest are
+    // zeros on both sides: x12's last step, and C's)
+    const int live = kt < nk12 ? F12 - kt * kFK : C - (kt - nk12) * kFK;
+    const int ng = min(live + 3, kFK) / 4;
+    if (next && formed) {
+      // B9a: step kt+1's p formed beside step kt's FMAs, four k of the
+      // chain beside four k of the FMAs while both last (the formation's
+      // shared-memory loads run beside FMAs, not in a phase of their own)
+      const float* l = slice(kt + 1);
+      float pa[4][kFC] = {};
+      const int gf = min(F3, kFK) / 4;
+      int g = 0;
+      for (; g < min(gf, ng); ++g) {
+        chain(l, 4 * g, pa);
+        fma4(a, w, g);
+      }
+      for (int gc = g; gc < gf; ++gc) chain(l, 4 * gc, pa);
+      for (; g < ng; ++g) fma4(a, w, g);
+      for (int k = 4 * gf; k < F3; ++k) chain1(l, k, pa);
+      form_put(kt + 1, l, pa);
+    } else {
+      float ra[kFPass][4];
+      if (next) load_a(kt + 1, ra);
+      if (ng == kFK / 4) {
+#pragma unroll
+        for (int g = 0; g < kFK / 4; ++g) fma4(a, w, g);
+      } else {
+        for (int g = 0; g < ng; ++g) fma4(a, w, g);
+      }
+      if (next) store_a(kt + 1, ra);
+    }
+  }
+  cgc::tc::cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long row = row0 + ty * 8 + i;
+    const long long row = row0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < C) logits[row * C + col] = acc[i][j] + cnst[col];
+    for (int j = 0; j < kFJ; ++j) {
+      const int col = col0 + 4 * (tx + kFTX * j);
+      if (vec_out) {  // C % 4 == 0, logits and cnst 16-byte aligned
+        if (col < C) {
+          const float4 cv = *reinterpret_cast<const float4*>(cnst + col);
+          *reinterpret_cast<float4*>(logits + row * C + col) =
+              make_float4(acc[i][4 * j] + cv.x, acc[i][4 * j + 1] + cv.y,
+                          acc[i][4 * j + 2] + cv.z, acc[i][4 * j + 3] + cv.w);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < C)
+            logits[row * C + col + e] = acc[i][4 * j + e] + cnst[col + e];
+      }
     }
   }
 }
@@ -719,23 +1059,83 @@ cudaError_t rnorm_lin_tc(const HeadArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, bool PRE, bool LIN>
-cudaError_t gemm_simt(const HeadArgs& a, const Lin<T>& lin, cudaStream_t st) {
+// The f32 product's copy width in floats (4, 2 or 1): C a multiple of it
+// and every operand read by cp.async or vector loads (K12, K3f; p or h3a;
+// B9a kc3 and b3) aligned to it. x12 is read one float at a time.
+int f32_vec(const HeadArgs& a, bool lin) {
+  const void* ptrs[] = {a.k12, a.k3f, lin ? a.kc3 : a.p, lin ? a.b3 : a.p};
+  for (int vec = 4; vec > 1; vec /= 2) {
+    bool ok = a.C % vec == 0;
+    for (const void* q : ptrs)
+      ok = ok && reinterpret_cast<uintptr_t>(q) % (4 * vec) == 0;
+    if (ok) return vec;
+  }
+  return 1;
+}
+
+template <bool PRE, bool LIN, int VEC>
+cudaError_t launch_f32_gemm(const HeadArgs& a, const Lin<float>& lin,
+                            cudaStream_t st) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = allow_smem<gemm_kernel<PRE, LIN, VEC>>(device);
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(a.B) * a.N;
+  const dim3 grid((a.C + kFN - 1) / kFN, static_cast<unsigned>(rows / kBM));
+  const bool vec_out = a.C % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(a.logits) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(a.cnst) % 16 == 0;
+  gemm_kernel<PRE, LIN, VEC><<<grid, kFThreads, f32_smem(LIN, lin.F3), st>>>(
+      static_cast<const float*>(a.x12), static_cast<const float*>(a.p), lin,
+      a.rnorm, static_cast<const float*>(a.k12),
+      static_cast<const float*>(a.k3f), a.cnst, a.n_nodes, a.logits, a.N,
+      a.F12, a.C, vec_out);
+  return cudaGetLastError();
+}
+
+// the f32 product on the CUDA cores, in the widest copies f32_vec allows
+template <bool PRE, bool LIN>
+cudaError_t gemm_f32(const HeadArgs& a, const Lin<float>& lin,
+                     cudaStream_t st) {
   if (a.k12 == nullptr || a.k3f == nullptr || (LIN && a.kc3 == nullptr))
     return cudaErrorInvalidValue;
-  const size_t gsmem = sizeof(float) * kBM * lin.F3;
-  if (LIN) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<T, PRE, LIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(gsmem));
-    if (err != cudaSuccess) return err;
+  switch (f32_vec(a, LIN)) {
+    case 4:
+      return launch_f32_gemm<PRE, LIN, 4>(a, lin, st);
+    case 2:
+      return launch_f32_gemm<PRE, LIN, 2>(a, lin, st);
+    default:
+      return launch_f32_gemm<PRE, LIN, 1>(a, lin, st);
   }
+}
+
+// f32 B9a's row norm: kc3's column slice (all of C when F3 + 1 rows of it
+// and the warps' x3 rows fit in kRnSmem; else the widest multiple of 32 *
+// kRnCols columns that does), a grid of at most two blocks an SM
+cudaError_t rnorm_lin_f32(const HeadArgs& a, const Lin<float>& lin,
+                          cudaStream_t st) {
   const long long rows = static_cast<long long>(a.B) * a.N;
-  const dim3 grid((a.C + kBN - 1) / kBN, static_cast<unsigned>(rows / kBM));
-  gemm_kernel<T, PRE, LIN><<<grid, kThreads, gsmem, st>>>(
-      static_cast<const T*>(a.x12), static_cast<const T*>(a.p), lin, a.rnorm,
-      static_cast<const T*>(a.k12), static_cast<const T*>(a.k3f), a.cnst,
-      a.n_nodes, a.logits, a.N, a.F12, a.C);
+  const size_t x3_bytes =
+      sizeof(float) * kThreads / 32 * kRnRows * x3_stride(lin.F3);
+  const long long fit =
+      (static_cast<long long>(kRnSmem) - static_cast<long long>(x3_bytes)) /
+      (sizeof(float) * (lin.F3 + 1)) / (32 * kRnCols) * (32 * kRnCols);
+  const int cs = static_cast<int>(std::min<long long>(
+      round_up(a.C, 32 * kRnCols), std::max<long long>(32 * kRnCols, fit)));
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = allow_smem<rnorm_kernel<float, 1, true>>(device);
+  if (err != cudaSuccess) return err;
+  const long long groups = rows / (kThreads / 32 * kRnRows);
+  const unsigned grid =
+      static_cast<unsigned>(std::min<long long>(groups, 2LL * sms));
+  rnorm_kernel<float, 1, true>
+      <<<grid, kThreads, sizeof(float) * (lin.F3 + 1) * cs + x3_bytes, st>>>(
+          nullptr, lin, a.rnorm, rows, a.C, cs);
   return cudaGetLastError();
 }
 
@@ -747,27 +1147,25 @@ cudaError_t launch_rnorm(const HeadArgs& a, cudaStream_t st) {
   if (rows == 0 || a.C == 0) return cudaGetLastError();
   if constexpr (std::is_same<T, bf16>::value && LIN) {
     return rnorm_lin_tc(a, st);
+  } else if constexpr (LIN) {
+    if (a.kc3 == nullptr) return cudaErrorInvalidValue;
+    return rnorm_lin_f32(
+        a,
+        Lin<float>{static_cast<const float*>(a.x3),
+                   static_cast<const float*>(a.kc3),
+                   static_cast<const float*>(a.b3), a.F3},
+        st);
   } else {
-    if (LIN && a.kc3 == nullptr) return cudaErrorInvalidValue;
-    const Lin<T> lin{static_cast<const T*>(a.x3),
-                     static_cast<const T*>(a.kc3),
-                     static_cast<const T*>(a.b3), LIN ? a.F3 : 0};
     const unsigned warp_blocks =
         static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
-    const size_t smem = sizeof(float) * (kThreads / 32) * lin.F3;
     auto p = static_cast<const T*>(a.p);
-    if constexpr (LIN) {
-      rnorm_kernel<T, 1, true><<<warp_blocks, kThreads, smem, st>>>(
-          p, lin, a.rnorm, rows, a.C);
-    } else {
-      cudaError_t err = cgc::with_vec<T>(cgc::row_vec<T>(a.C, p),
-                                         [&](auto e) {
-        rnorm_kernel<T, decltype(e)::value, false>
-            <<<warp_blocks, kThreads, 0, st>>>(p, lin, a.rnorm, rows, a.C);
-        return cudaSuccess;
-      });
-      if (err != cudaSuccess) return err;
-    }
+    const Lin<T> none{nullptr, nullptr, nullptr, 0};
+    cudaError_t err = cgc::with_vec<T>(cgc::row_vec<T>(a.C, p), [&](auto e) {
+      rnorm_kernel<T, decltype(e)::value, false>
+          <<<warp_blocks, kThreads, 0, st>>>(p, none, a.rnorm, rows, a.C, 0);
+      return cudaSuccess;
+    });
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
   }
 }
@@ -788,7 +1186,7 @@ cudaError_t launch(const HeadArgs& a, cudaStream_t st) {
   if constexpr (kBF16)
     err = gemm_bf16<PRE, LIN>(a, st);
   else
-    err = gemm_simt<T, PRE, LIN>(a, lin, st);
+    err = gemm_f32<PRE, LIN>(a, lin, st);
   if (err != cudaSuccess) return err;
   if (a.C <= 32 * kSoftPer)
     softmax_rows_kernel<T><<<warp_blocks, kThreads, 0, st>>>(

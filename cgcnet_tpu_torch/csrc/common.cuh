@@ -130,7 +130,8 @@ __device__ __forceinline__ float warp_max(float v) {
 // each of its E element positions a chain of fmaf in vector order; the E
 // chains are added in order, then the lanes by warp_sum. The one order of
 // B3's row norm (assign_tail.cu) and of B4's and f32 B9a's (assign_head.cu
-// rnorm_kernel; B9a with E = 1 and p formed by lin_p), so the statistics
+// rnorm_kernel; B9a with E = 1 and p formed by lin_p, through rows_rnorm,
+// which keeps this order for several rows at once), so the statistics
 // and the head form the same h from the same p, bit for bit. Every lane
 // of the warp calls it.
 template <int E, typename Load>
@@ -147,6 +148,39 @@ __device__ __forceinline__ float row_rnorm(int nvec, int lane, Load&& load) {
   for (int e = 1; e < E; ++e) s += ss[e];
   s = warp_sum(s);
   return 1.f / fmaxf(sqrtf(s), 1e-12f);
+}
+
+// row_rnorm<1> of R rows at once, J columns a lane at a time: ``load(c,
+// x)`` puts columns c, c + 32, ..., c + 32 (J - 1) of each row into x[J][R]
+// (f32), so a value the R rows share (B9a's kc3[k][c]) or the J columns
+// share (an x3[r][k]) is read once for all of them. Adds columns [0, ncols)
+// into the lane's sums ss[R] — lane l takes l, l + 32, ... in ascending
+// order, one fmaf chain a row, as row_rnorm<1> (load may be handed columns
+// at or past ncols: they are not added) — so a row cut into slices of a
+// multiple of 32 J columns keeps that order across calls;
+// rows_rnorm_finish then gives each row's norm by row_rnorm's warp_sum and
+// clamp, bit for bit its result. Every lane of the warp calls both.
+template <int R, int J, typename Load>
+__device__ __forceinline__ void rows_rnorm(float (&ss)[R], int lane,
+                                           int ncols, Load&& load) {
+  for (int c = lane; c < ncols; c += 32 * J) {
+    float x[J][R];
+    load(c, x);
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (c + 32 * j < ncols) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) ss[r] = fmaf(x[j][r], x[j][r], ss[r]);
+      }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void rows_rnorm_finish(const float (&ss)[R],
+                                                  float (&rn)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    rn[r] = 1.f / fmaxf(sqrtf(warp_sum(ss[r])), 1e-12f);
 }
 
 }  // namespace cgc

@@ -8,7 +8,7 @@ Phases, each fatal on failure (exit code != 0):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build of the hand-written kernels from ``cgcnet_tpu_torch/csrc`` (nvcc),
    with the compiler's registers and spills of every instantiation of the
-   bf16 tensor-core kernels (``TC_KERNELS``);
+   bf16 tensor-core kernels and of the heads' f32 product (``TC_KERNELS``);
 3. kernels: B1 (block build, for A and for the binary transpose blocks),
    B2 (block-sparse matmul, at every width one training step gives it, on
    the forward and on the transpose blocks, walking the live slots the
@@ -515,7 +515,10 @@ def head_split(fn, calls: int = 3) -> dict:
     """Device ms per call of each of the head's launches (HEAD_PARTS) and
     of the wrapper's other kernels (``other``: the padded weight copies),
     from the kernel events of a torch.profiler trace of ``calls`` calls;
-    "not measured" where the trace holds no device time."""
+    "not measured" where the trace holds no device time. A call launches
+    each part once, so a part's ms is the mean of the events the trace
+    caught (the profiler drops one now and then: a sum over ``calls``
+    would read a dropped launch as a faster one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -528,15 +531,18 @@ def head_split(fn, calls: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
     us = {part: 0.0 for part in (*HEAD_PARTS, "other")}
+    seen = dict.fromkeys(us, 0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         part = next((p for p, names in HEAD_PARTS.items()
                      if any(n in e.name for n in names)), "other")
         us[part] += e.time_range.elapsed_us()
+        seen[part] += 1
     if not any(us.values()):
         return {part: "not measured" for part in us}
-    return {part: v / calls / 1e3 for part, v in us.items()}
+    return {part: v / (seen[part] if part in HEAD_PARTS and seen[part]
+                       else calls) / 1e3 for part, v in us.items()}
 
 
 def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
@@ -2059,8 +2065,10 @@ def slice_phase(tmp: Path, device) -> dict:
             "gin_train_cli_wall_s": gin_train["cli_wall_s"]}
 
 
-# the tensor-core kernels whose compiler report phase 2 must hold
-TC_KERNELS = ("banded_tc_kernel", "gemm_tc_kernel", "bsr_matmul_tc_kernel")
+# the kernels whose compiler report phase 2 must hold: the bf16
+# tensor-core kernels, and the heads' f32 product on the CUDA cores
+TC_KERNELS = ("banded_tc_kernel", "gemm_tc_kernel", "bsr_matmul_tc_kernel",
+              "gemm_kernel")
 
 
 def tc_report(build_log: str) -> None:

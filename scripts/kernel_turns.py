@@ -25,13 +25,12 @@ on inputs made from seeds. Groups of legs (``--legs``, default all):
 - ``b1``: B1 (``bsr_build_blocks``) on a patch batch's A (as ``b2``) in f32
   and bf16, and on the slide's int8 blocks of A and of its transpose (as
   ``parallel.mega_model.build_vals`` builds them);
-- ``head``: one whole-slide B4 call (``assign_head_softmax_pre``: 100352
-  rows, 100000 real, F12=40, C=1140) in bf16 and f32, and one bf16 B9a
-  call (``assign_head_softmax_pre_lin``, F3=20), split by
-  ``chip_smoke.head_split`` into its row norm, product, softmax and other
-  launches; the B9a leg also prints a checksum of its S (the first 16 hex
-  digits of the SHA-256 of its bytes), so two commits' S can be compared
-  bit for bit.
+- ``head``: in bf16 and f32, one whole-slide B4 call
+  (``assign_head_softmax_pre``: 100352 rows, 100000 real, F12=40, C=1140)
+  and one B9a call (``assign_head_softmax_pre_lin``, F3=20), and one B4
+  and one B6 (``assign_head_softmax``) call on a patch batch (B=4, N=5760,
+  4000-5760 real rows a graph), each split by ``chip_smoke.head_split``
+  into its row norm, product, softmax and other launches.
 
     python3 scripts/kernel_turns.py                    # this checkout's
     python3 scripts/kernel_turns.py --root DIR         # another checkout's
@@ -51,8 +50,13 @@ kernel alone; B9b's and B3's reductions and B2's lone launch), and for
 device ms): bytes over 3.35 TB/s — B5 p and dh over the real rows read
 once and dp written once, B3 p over the real rows read once, B1 the ELL
 slice and slot tables read once and the blocks written once; for ``head``
-legs ``device_ms_per_call``, the device ms of each part. Imports nothing of
-JAX. Needs a card.
+legs ``device_ms_per_call``, the device ms of each part, ``device_ms``
+their sum, ``bound_ms`` and ``bound_share`` (operations over the real rows
+at the type's peak, or bytes, as chip_smoke.py counts them),
+``product_library_ms`` (the product alone as one cuBLAS call,
+``chip_smoke.product_library_ms``) and ``s_sha256``, the first 16 hex
+digits of the SHA-256 of S's bytes, so two commits' S can be compared bit
+for bit. Imports nothing of JAX. Needs a card.
 """
 
 from __future__ import annotations
@@ -290,6 +294,69 @@ def b1_legs(bsr, knn, dev) -> list:
     return legs
 
 
+def head_legs(ah, cs, dev, rnd, calls: int):
+    """One line per head leg (module docstring), made one leg at a time:
+    the device ms of each launch (``chip_smoke.head_split``) and their sum,
+    the bound (operations at the type's peak or bytes, as chip_smoke.py
+    counts them) and its share of the device ms, the product alone in
+    cuBLAS, and the first 16 hex digits of the SHA-256 of S's bytes."""
+    import torch
+
+    rows = -(-SLIDE_NUCLEI // 512) * 512
+    legs = [  # (head, where, dtype, B, N, real rows per graph)
+        (head, where, dt, b, n, real)
+        for head, where, b, n, real in (
+            ("B4", "slide", 1, rows, [SLIDE_NUCLEI]),
+            ("B9a", "slide", 1, rows, [SLIDE_NUCLEI]),
+            ("B4", "patch", PATCH_B, PATCH_N, PATCH_REAL),
+            ("B6", "patch", PATCH_B, PATCH_N, PATCH_REAL))
+        for dt in (torch.bfloat16, torch.float32)]
+    for head, where, dt, b, n, real in legs:
+        tag = str(dt).split(".")[-1]
+        isz = torch.empty((), dtype=dt).element_size()
+        n_nodes = torch.tensor(real, dtype=torch.int32, device=dev)
+        rr = sum(real)
+        x12 = rnd(b, n, F12).to(dt)
+        k12, k3f, const = rnd(F12, C) * 0.2, rnd(C, C) * 0.05, rnd(C) * 0.1
+        if head == "B9a":
+            x3 = torch.relu(rnd(b, n, F3)).to(dt)
+            kc3, b3 = rnd(F3, C) * 0.3, rnd(C) * 0.1
+            a = (x12, x3, kc3, b3, k12, k3f, const, n_nodes)
+            fn = lambda a=a: ah.assign_head_softmax_pre_lin(*a)  # noqa: E731
+            name = f"B9a head {tag} N={n} F12={F12} F3={F3} C={C}"
+            ops = 2 * rr * C * (F3 + F12 + C)
+            bytes_ = (rr * (F12 + F3) * isz + (F3 + 1 + F12 + C) * C * isz
+                      + C * 4 + b * n * C * isz)
+        else:
+            a = (x12, rnd(b, n, C).to(dt), k12, k3f, const, n_nodes)
+            call = (ah.assign_head_softmax_pre if head == "B4"
+                    else ah.assign_head_softmax)
+            fn = lambda a=a, call=call: call(*a)  # noqa: E731
+            name = f"{head} head {tag} {where} B={b} N={n} F12={F12} C={C}"
+            ops = 2 * rr * (F12 + C) * C
+            bytes_ = (rr * (F12 + C) * isz + (F12 + C) * C * isz + C * 4
+                      + b * n * C * isz)
+        s = fn()
+        s = s[0] if isinstance(s, tuple) else s
+        digest = hashlib.sha256(s.view(torch.int16).cpu().numpy()
+                                .tobytes()).hexdigest()[:16]
+        del s
+        split = cs.head_split(fn, calls=calls)
+        dev_ms = (sum(split.values())
+                  if all(isinstance(v, float) for v in split.values())
+                  else None)
+        bound = max(bytes_ / cs.PEAK_BYTES_PER_S,
+                    ops / cs.PEAK_OPS_PER_S[tag]) * 1e3
+        yield {"leg": name, "device_ms_per_call": split, "device_ms": dev_ms,
+               "bound_ms": bound,
+               "bound_share": bound / dev_ms if dev_ms else None,
+               "product_library_ms": cs.product_library_ms(
+                   b * n, F12 + C, C, dt, dev),
+               "s_sha256": digest}
+        del a, fn, x12
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(REPO))
@@ -359,34 +426,9 @@ def main() -> int:
     _SLIDE.clear()
     torch.cuda.empty_cache()
     if "head" in groups:
-        n_nodes = torch.tensor([SLIDE_NUCLEI], dtype=torch.int32, device=dev)
-        rows = -(-SLIDE_NUCLEI // 512) * 512
-        for dt in (torch.bfloat16, torch.float32):
-            x12, p = rnd(1, rows, F12).to(dt), rnd(1, rows, C).to(dt)
-            k12, k3f, const = rnd(F12, C) * 0.2, rnd(C, C) * 0.05, rnd(C) * 0.1
-            split = cs.head_split(lambda: ah.assign_head_softmax_pre(
-                x12, p, k12, k3f, const, n_nodes), calls=args.calls)
-            tag = str(dt).split(".")[-1]
-            print(json.dumps({
-                "root": args.root, "leg": f"B4 head {tag} N={rows} F12={F12} "
-                f"C={C}", "device_ms_per_call": split, "device": smi}),
-                flush=True)
-            del x12, p
-            torch.cuda.empty_cache()
-        x12 = rnd(1, rows, F12).bfloat16()
-        x3 = torch.relu(rnd(1, rows, F3)).bfloat16()
-        kc3, b3 = rnd(F3, C) * 0.3, rnd(C) * 0.1
-        k12, k3f, const = rnd(F12, C) * 0.2, rnd(C, C) * 0.05, rnd(C) * 0.1
-        a9 = (x12, x3, kc3, b3, k12, k3f, const, n_nodes)
-        s = ah.assign_head_softmax_pre_lin(*a9)
-        digest = hashlib.sha256(
-            s.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
-        split = cs.head_split(lambda: ah.assign_head_softmax_pre_lin(*a9),
-                              calls=args.calls)
-        print(json.dumps({
-            "root": args.root, "leg": f"B9a head bfloat16 N={rows} "
-            f"F12={F12} F3={F3} C={C}", "device_ms_per_call": split,
-            "s_sha256": digest, "device": smi}), flush=True)
+        for line in head_legs(ah, cs, dev, rnd, args.calls):
+            print(json.dumps({"root": args.root, **line, "device": smi}),
+                  flush=True)
     return 0
 
 

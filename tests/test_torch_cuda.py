@@ -567,6 +567,127 @@ def test_heads_refuse_other_padding(device, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the f32 heads (B4, B6, B9a) on the CUDA cores at their edges
+# ---------------------------------------------------------------------------
+
+def _f32_heads(device, cc, f12, offset=0, seed=17):
+    """(name, wrapper, card args, plain, CPU args, kwargs, expected product
+    kernel) of f32 B4 (with and without ``c_out``), B6 and B9a at C=cc,
+    F12=f12; p (B4's and B6's operand) stored ``offset`` elements into its
+    buffer on the card, which narrows the product's copies."""
+    gen = torch.Generator().manual_seed(seed + cc + f12)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+    b, n, f3 = 2, 512, 20
+    x12, x3 = rnd(b, n, f12), torch.relu(rnd(b, n, f3))
+    kc3, b3 = rnd(f3, cc) * 0.3, rnd(cc) * 0.1
+    k12, k3f, const = rnd(f12, cc) * 0.2, rnd(cc, cc) * 0.05, rnd(cc) * 0.1
+    nn_ = torch.tensor([450, 300], dtype=torch.int32)  # both end mid-tile
+    p = ah.lin_p(x3, kc3, b3)
+    p[0, 7] = 0  # an all-zero row: rnorm clamps
+    flat = torch.empty(p.numel() + offset, device=device)
+    p_dev = flat[offset:].view(p.shape)
+    p_dev.copy_(p)
+    to = lambda *a: [t.to(device) for t in a]
+    vec = 4 if cc % 4 == 0 and not offset else 2 if cc % 2 == 0 \
+        and offset % 2 == 0 else 1
+    lin_vec = 4 if cc % 4 == 0 else 2 if cc % 2 == 0 else 1
+    c_out = max(1152, cc + 8)
+    head = (x12, p, k12, k3f, const, nn_)
+    card = lambda: [x12.to(device), p_dev, *to(k12, k3f, const, nn_)]
+    return [
+        ("B4", ah.assign_head_softmax_pre, card, head,
+         lambda *a: ah.assign_head_softmax_pre_plain(*a)[0], {},
+         f"gemm_kernel<true, false, {vec}>"),
+        ("B4 c_out", ah.assign_head_softmax_pre, card, head,
+         lambda *a: ah.assign_head_softmax_pre_plain(*a, c_out)[0],
+         {"c_out": c_out}, f"gemm_kernel<true, false, {vec}>"),
+        ("B6", ah.assign_head_softmax, card, head,
+         ah.assign_head_softmax_plain, {},
+         f"gemm_kernel<false, false, {vec}>"),
+        ("B9a", ah.assign_head_softmax_pre_lin,
+         lambda: to(x12, x3, kc3, b3, k12, k3f, const, nn_),
+         (x12, x3, kc3, b3, k12, k3f, const, nn_),
+         ah.assign_head_softmax_pre_lin_plain, {},
+         f"gemm_kernel<true, true, {lin_vec}>"),
+    ], nn_, n
+
+
+@pytest.mark.parametrize("f12", [18, 40])
+@pytest.mark.parametrize("cc", [114, 200, 1140, 1141, 1600])
+def test_heads_f32_match_plain(device, cc, f12):
+    """f32 B4 (with and without ``c_out``), B6 and B9a against their plain
+    versions at the TOL rule (1e-5) at the model's and the second pool's C,
+    odd and wide C (a ragged last k-step and column tile; B9a's row norm in
+    column slices at 1600), with n_nodes ending mid-tile in both graphs and
+    an all-zero p row: rows past n_nodes and pad columns exactly 0, the same
+    bits on a second call, and the f32 product kernel in the widest copies C
+    and the bases allow (never the tensor cores)."""
+    heads, nn_, n = _f32_heads(device, cc, f12)
+    rows = (torch.arange(n)[None, :] < nn_.long()[:, None]).to(device)
+    for name, fn, card, args, plain, kw, kernel in heads:
+        launches = fn.launches
+        out = fn(*card(), **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        assert fn.launches == launches + 1, name
+        assert out.dtype == torch.float32, name
+        _close_to(out, plain(*args), 1e-5)
+        assert not out[~rows].any(), name
+        assert not out[..., cc:].any(), name
+        again = fn(*card(), **kw)
+        again = again[0] if isinstance(again, tuple) else again
+        assert torch.equal(again, out), name
+        names = _kernel_names(lambda: fn(*card(), **kw))
+        assert any(kernel in k for k in names), (name, kernel, names)
+        assert not any("gemm_tc_kernel" in k for k in names), (name, names)
+
+
+def test_heads_f32_narrow_copies(device):
+    """f32 B4 and B6 with p one element into its buffer: the product reads
+    p and the weights one float at a time, and agrees all the same."""
+    heads, nn_, n = _f32_heads(device, 1140, 40, offset=1)
+    rows = (torch.arange(n)[None, :] < nn_.long()[:, None]).to(device)
+    for name, fn, card, args, plain, kw, kernel in heads[:3]:
+        assert card()[1].data_ptr() % 8, name
+        out = fn(*card(), **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        _close_to(out, plain(*args), 1e-5)
+        assert not out[~rows].any(), name
+        names = _kernel_names(lambda: fn(*card(), **kw))
+        assert any(kernel in k for k in names), (name, kernel, names)
+        assert kernel.endswith(", 1>"), kernel
+
+
+@pytest.mark.parametrize("cc", [114, 1141, 1600])
+def test_b9a_f32_row_norm_is_b9bs(device, cc):
+    """f32 B9a's row norm (rnorm_kernel with LIN: several rows a warp
+    through common.cuh's rows_rnorm, kc3 in column slices at C=1600) is
+    f32 B9b's (row_rnorm<1> over lin_p) bit for bit on every real row."""
+    from cgcnet_tpu_torch.ops import _cuda
+
+    gen = torch.Generator().manual_seed(43 + cc)
+    b, n, f3 = 2, 640, 20
+    x3 = torch.relu(torch.randn((b, n, f3), generator=gen)).to(device)
+    kc3 = (torch.randn((f3, cc), generator=gen) * 0.3).to(device)
+    b3 = (torch.randn((cc,), generator=gen) * 0.1).to(device)
+    nn_ = torch.tensor([600, 77], dtype=torch.int32, device=device)
+    partial = torch.empty((ah.STATS_BLOCKS, 2, cc), device=device)
+    out = torch.empty((2, cc), device=device)
+    rn9b = torch.full((b * n,), float("nan"), device=device)
+    _cuda.launch("cgc_l2relu_stats_lin", x3.data_ptr(), kc3.data_ptr(), None,
+                 b3.data_ptr(), nn_.data_ptr(), partial.data_ptr(),
+                 out.data_ptr(), rn9b.data_ptr(), b, n, f3, cc, 0, 0,
+                 ah.STATS_BLOCKS, 0, device.index or 0, _cuda.stream_of(x3))
+    rn9a = torch.empty((b * n,), device=device)
+    _cuda.launch("cgc_assign_head_rnorm", None, x3.data_ptr(), kc3.data_ptr(),
+                 None, b3.data_ptr(), nn_.data_ptr(), rn9a.data_ptr(), b, n,
+                 f3, cc, 0, 0, 0, device.index or 0, _cuda.stream_of(x3))
+    rows = (torch.arange(n, device=device)[None]
+            < nn_.long()[:, None]).reshape(-1)
+    assert torch.equal(rn9b[rows], rn9a[rows])
+    assert torch.isfinite(rn9a).all()  # every row's norm is formed
+
+
+# ---------------------------------------------------------------------------
 # B2 over live slots; bf16 B9b; B9a's p routine
 # ---------------------------------------------------------------------------
 
