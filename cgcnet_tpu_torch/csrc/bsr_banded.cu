@@ -50,153 +50,164 @@
 //   slot is walked (B1 writes exact zeros in dead slots, so the result is
 //   the same).
 //
-// f32 x, or F < 128 — banded_kernel, B2's SIMT tile: one thread block per
-//   (b, r, column chunk of F), k-steps of 32 staging a transposed [128 x 32]
-//   slice of the block and the [32 x FC] slice of x in shared memory, an
-//   8 x (FC/16) f32 register tile per thread; the chunks of one row tile run
-//   adjacent so the block is read from L2 after its first chunk. It walks
-//   all M slots. (f32 on the tensor cores would mean TF32, which the f32
-//   path's tolerances do not allow.)
+// f32 x, or F < 128 — banded_kernel, a gather over the blocks' nonzeros
+//   (gather.cuh). The slide's blocks are binary, ~9 nonzeros a row over
+//   ~7 live slots of 128 columns: ~1% of each block, so the dense product
+//   is ~99% fmaf(0, x, s). One warp a row of the output, rows in order
+//   (consecutive row tiles in neighbouring blocks: L2 serves the x rows
+//   that neighbours share). It walks the row tile's slots below
+//   ``live_slots`` where given (else all M: dead slots are exact zeros);
+//   for each slot the warp reads the row's 128 block values once for all
+//   of F (4 a lane, one vector load; the next slot's are loaded while this
+//   one's are used), takes its nonzero columns in ascending order (a ballot,
+//   then each lane's 4 in order) and makes each a term: the value (x's type
+//   or int8, in f32) times the source row of x or the halo, as above.
+//   The terms are added in that order into f32 sums, lanes across F in the
+//   widest vectors that F and the bases allow, then the acc / split
+//   outputs, the epilogue or neither. Each output is the dense product's
+//   fmaf chain over slots and columns in order without its zero terms, so
+//   it is bit-equal to it for finite x, and each block row is read once.
+//   Bound: the bytes of the blocks, x, the output (and acc) and the x rows
+//   of the nonzeros from L2; 2 * nnz * F operations. Blocks with many
+//   nonzeros (dense random f32 blocks) give the same bits, more slowly.
+//   (f32 on the tensor cores would mean TF32, which the f32 path's
+//   tolerances do not allow.)
 
 #include "common.cuh"
+#include "gather.cuh"
 #include "tc.cuh"
 
 namespace {
 
-constexpr int kBK = 32;
-constexpr int kThreads = 256;
+using cgc::gather::kFull;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 
-template <typename V, typename T, int CPT>
+template <typename V, typename T, int VEC, int NV>
 __global__ void __launch_bounds__(kThreads) banded_kernel(
     const V* __restrict__ vals, const int* __restrict__ blk_cols,
-    const T* __restrict__ x, const T* __restrict__ halo,
-    const T* __restrict__ acc, const T* __restrict__ sw, T* __restrict__ out,
-    T* __restrict__ out_tail, int R, int M, int ns_tiles, int NX, int NH,
-    int F, int NA) {
-  constexpr int FC = 16 * CPT;
-  __shared__ float As[kBK][cgc::kTile + 1];
-  __shared__ float Bs[kBK][FC];
-
-  const long long br = blockIdx.y;  // b * R + r
-  const long long b = br / R;
-  const int r = static_cast<int>(br % R);
-  const int f0 = blockIdx.x * FC;
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
+    const int* __restrict__ slots, const T* __restrict__ x,
+    const T* __restrict__ halo, const T* __restrict__ acc,
+    const T* __restrict__ sw, T* __restrict__ out, T* __restrict__ out_tail,
+    int B, int R, int M, int ns_tiles, int NX, int NH, int F, int NA) {
+  const int lane = threadIdx.x % 32;
+  const long long rows_b = static_cast<long long>(R) * cgc::kTile;
+  const long long g =
+      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (g >= B * rows_b) return;  // the whole warp
+  const long long b = g / rows_b;
+  const long long row = g % rows_b;  // the output row within graph b
+  const long long br = b * R + row / cgc::kTile;
+  const int nslots = slots != nullptr ? min(slots[br], M) : M;
   const T* xb = x + b * NX * static_cast<long long>(F);
   const T* hb = halo ? halo + b * NH * static_cast<long long>(F) : nullptr;
-
-  float sum[8][CPT];
+  // this row of slot m's block: its 4 values at columns 4 * lane .. (f32)
+  const auto block_row = [&](float (&a)[4], int m) {
+    cgc::load_vec<V, 4>(a, vals + ((br * M + m) * cgc::kTile +
+                                   row % cgc::kTile) * cgc::kTile + 4 * lane);
+  };
+  // the row tile's first 32 column tiles one a lane, read at once
+  const int col0 = lane < nslots ? blk_cols[br * M + lane] : 0;
+  const int nvec = F / VEC;
+  for (int v0 = 0; v0 < nvec; v0 += 32 * NV) {
+    cgc::gather::Row<T, VEC, NV> sum(v0, nvec);
+    float next[4] = {0.f, 0.f, 0.f, 0.f};
+    if (nslots > 0) block_row(next, 0);
+    for (int m = 0; m < nslots; ++m) {
+      float a[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+      for (int e = 0; e < 4; ++e) a[e] = next[e];
+      if (m + 1 < nslots) block_row(next, m + 1);
+      const int c =
+          m < 32 ? __shfl_sync(kFull, col0, m) : blk_cols[br * M + m];
+      // the column tile's source rows: x's own tiles, then the halo
+      const T* src = xb;
+      long long row0 = static_cast<long long>(c) * cgc::kTile;
+      int nrows = NX;
+      if (c >= ns_tiles && hb != nullptr) {
+        src = hb;
+        row0 = static_cast<long long>(c - ns_tiles) * cgc::kTile;
+        nrows = NH;
+      }
+      const bool nz = a[0] != 0.f || a[1] != 0.f || a[2] != 0.f || a[3] != 0.f;
+      for (unsigned bal = __ballot_sync(kFull, nz); bal; bal &= bal - 1) {
+        const int l = __ffs(bal) - 1;
+        sum.reserve(4, lane);
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) sum[i][j] = 0.f;
-
-  for (int m = 0; m < M; ++m) {
-    const long long blk = br * M + m;
-    const int c = blk_cols[blk];
-    // the column tile's source rows: x's own tiles, then the halo
-    const T* src = xb;
-    int row0 = c * cgc::kTile, nrows = NX;
-    if (c >= ns_tiles && hb != nullptr) {
-      src = hb;
-      row0 = (c - ns_tiles) * cgc::kTile;
-      nrows = NH;
+        for (int e = 0; e < 4; ++e) {
+          const float v = __shfl_sync(kFull, a[e], l);
+          const long long xr = row0 + 4 * l + e;
+          if (v != 0.f && xr >= 0 && xr < nrows) sum.add(src + xr * F, v, lane);
+        }
+      }
     }
-    const V* a = vals + blk * cgc::kTile * cgc::kTile;
-    for (int k0 = 0; k0 < cgc::kTile; k0 += kBK) {
-      for (int e = t; e < cgc::kTile * kBK; e += kThreads) {
-        const int row = e / kBK, kk = e % kBK;
-        As[kk][row] = cgc::to_f32(a[row * cgc::kTile + k0 + kk]);
-      }
-      for (int e = t; e < kBK * FC; e += kThreads) {
-        const int kk = e / FC, cc = e % FC;
-        const int xr = row0 + k0 + kk;
-        const int f = f0 + cc;
-        Bs[kk][cc] = (xr >= 0 && xr < nrows && f < F)
-                         ? cgc::to_f32(src[static_cast<long long>(xr) * F + f])
-                         : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        float av[8], bv[CPT];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = As[kk][ty * 8 + i];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j)
-            sum[i][j] = fmaf(av[i], bv[j], sum[i][j]);
-      }
-      __syncthreads();
-    }
-  }
+    sum.flush(lane);
 
-  // acc / split outputs and the epilogue take B == 1 (the wrapper checks)
-  const long long rows_b = static_cast<long long>(R) * cgc::kTile;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long row = static_cast<long long>(r) * cgc::kTile + ty * 8 + i;
+    // acc / split outputs and the epilogue take B == 1 (the wrapper checks)
     float sc = 0.f, sf = 0.f;
     if (sw != nullptr) {
       sc = cgc::to_f32(sw[row * 128]);
       sf = cgc::to_f32(sw[row * 128 + 1]);
     }
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int f = f0 + tx + 16 * j;
-      if (f >= F) continue;
-      float v = sum[i][j];
+    for (int j = 0; j < NV; ++j) {
+      const int vi = v0 + lane + 32 * j;
+      if (vi >= nvec) continue;
+      const long long f = static_cast<long long>(vi) * VEC;
+      float v[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[e] = sum.acc[j][e];
       if (acc != nullptr) {
         if (row < NA) {
-          out[row * F + f] =
-              cgc::from_f32<T>(v + cgc::to_f32(acc[row * F + f]));
+          float av[VEC];
+          cgc::load_vec<T, VEC>(av, acc + row * F + f);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[e] = v[e] + av[e];
+          cgc::gather::store_vec<T, VEC>(out + row * F + f, v);
         } else {
-          out_tail[(row - NA) * F + f] = cgc::from_f32<T>(v);
+          cgc::gather::store_vec<T, VEC>(out_tail + (row - NA) * F + f, v);
         }
         continue;
       }
-      if (sw != nullptr) v = sc * v + sf * cgc::to_f32(xb[row * F + f]);
-      out[(b * rows_b + row) * F + f] = cgc::from_f32<T>(v);
+      if (sw != nullptr) {
+        float xv[VEC];
+        cgc::load_vec<T, VEC>(xv, xb + row * F + f);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[e] = sc * v[e] + sf * xv[e];
+      }
+      cgc::gather::store_vec<T, VEC>(out + (b * rows_b + row) * F + f, v);
     }
   }
 }
 
-template <typename V, typename T, int CPT>
-cudaError_t launch_cpt(const void* vals, const int* blk_cols, const void* x,
-                       const void* halo, const void* acc, const void* sw,
-                       void* out, void* out_tail, int B, int R, int M,
-                       int ns_tiles, int NX, int NH, int F, int NA,
-                       cudaStream_t s) {
-  constexpr int FC = 16 * CPT;
-  const dim3 grid((F + FC - 1) / FC, static_cast<unsigned>(B) * R);
-  if (grid.x > 0 && grid.y > 0) {
-    banded_kernel<V, T, CPT><<<grid, kThreads, 0, s>>>(
-        static_cast<const V*>(vals), blk_cols, static_cast<const T*>(x),
-        static_cast<const T*>(halo), static_cast<const T*>(acc),
-        static_cast<const T*>(sw), static_cast<T*>(out),
-        static_cast<T*>(out_tail), R, M, ns_tiles, NX, NH, F, NA);
-  }
-  return cudaGetLastError();
-}
-
+// the widest vector that F and every row base allow (x, the halo, acc and
+// the outputs); block rows are read 4 values a lane (vals aligned to 4)
 template <typename V, typename T>
-cudaError_t launch(const void* vals, const int* blk_cols, const void* x,
-                   const void* halo, const void* acc, const void* sw,
-                   void* out, void* out_tail, int B, int R, int M,
-                   int ns_tiles, int NX, int NH, int F, int NA,
+cudaError_t launch(const void* vals, const int* blk_cols, const int* slots,
+                   const void* x, const void* halo, const void* acc,
+                   const void* sw, void* out, void* out_tail, int B, int R,
+                   int M, int ns_tiles, int NX, int NH, int F, int NA,
                    cudaStream_t s) {
-  if (F <= 32)
-    return launch_cpt<V, T, 2>(vals, blk_cols, x, halo, acc, sw, out,
-                               out_tail, B, R, M, ns_tiles, NX, NH, F, NA, s);
-  if (F <= 64)
-    return launch_cpt<V, T, 4>(vals, blk_cols, x, halo, acc, sw, out,
-                               out_tail, B, R, M, ns_tiles, NX, NH, F, NA, s);
-  return launch_cpt<V, T, 8>(vals, blk_cols, x, halo, acc, sw, out, out_tail,
-                             B, R, M, ns_tiles, NX, NH, F, NA, s);
+  const long long rows = static_cast<long long>(B) * R * cgc::kTile;
+  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+  if (reinterpret_cast<uintptr_t>(vals) % (4 * sizeof(V)) != 0)
+    return cudaErrorMisalignedAddress;
+  const int vec = cgc::gather::rows_vec<T>(F, {x, halo, acc, out, out_tail});
+  return cgc::with_vec<T>(vec, [&](auto e) {
+    constexpr int E = decltype(e)::value;
+    return cgc::gather::with_nv(F / E, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      if (blocks > 0 && F > 0) {
+        banded_kernel<V, T, E, NV><<<blocks, kThreads, 0, s>>>(
+            static_cast<const V*>(vals), blk_cols, slots,
+            static_cast<const T*>(x), static_cast<const T*>(halo),
+            static_cast<const T*>(acc), static_cast<const T*>(sw),
+            static_cast<T*>(out), static_cast<T*>(out_tail), B, R, M,
+            ns_tiles, NX, NH, F, NA);
+      }
+      return cudaGetLastError();
+    });
+  });
 }
 
 
@@ -433,8 +444,8 @@ cudaError_t launch_tc(const void* vals, const int* blk_cols, const int* slots,
 
 // halo, acc, epilogue_sw, out_tail and live_slots may be null; out_tail is
 // needed exactly when acc covers NA < R*128 rows. vals_dtype: x's code or
-// kI8. bf16 at F >= 128 takes the tensor-core kernel (F even; it reads
-// live_slots), everything else the SIMT kernel (which walks all M slots).
+// kI8. bf16 at F >= 128 takes the tensor-core kernel (F even), everything
+// else the gather kernel; both stop at live_slots where it is given.
 extern "C" int cgc_bsr_matmul_banded(
     const void* vals, const void* blk_cols, const void* x, const void* halo,
     const void* acc, const void* epilogue_sw, void* out, void* out_tail,
@@ -453,12 +464,12 @@ extern "C" int cgc_bsr_matmul_banded(
   if (!i8 && vals_dtype != dtype) return cudaErrorInvalidValue;
   switch (dtype) {
     case cgc::kF32:
-      return i8 ? launch<int8_t, float>(vals, bc, x, halo, acc, epilogue_sw,
-                                        out, out_tail, B, R, M, ns_tiles, NX,
-                                        NH, F, NA, s)
-                : launch<float, float>(vals, bc, x, halo, acc, epilogue_sw,
-                                       out, out_tail, B, R, M, ns_tiles, NX,
-                                       NH, F, NA, s);
+      return i8 ? launch<int8_t, float>(vals, bc, slots, x, halo, acc,
+                                        epilogue_sw, out, out_tail, B, R, M,
+                                        ns_tiles, NX, NH, F, NA, s)
+                : launch<float, float>(vals, bc, slots, x, halo, acc,
+                                       epilogue_sw, out, out_tail, B, R, M,
+                                       ns_tiles, NX, NH, F, NA, s);
     case cgc::kBF16:
       if (F >= 128)
         return i8 ? launch_tc<int8_t>(vals, bc, slots, x, halo, acc,
@@ -467,13 +478,12 @@ extern "C" int cgc_bsr_matmul_banded(
                   : launch_tc<bf16>(vals, bc, slots, x, halo, acc,
                                     epilogue_sw, out, out_tail, B, R, M,
                                     ns_tiles, NX, NH, F, NA, s);
-      return i8 ? launch<int8_t, __nv_bfloat16>(vals, bc, x, halo, acc,
-                                                epilogue_sw, out, out_tail, B,
-                                                R, M, ns_tiles, NX, NH, F, NA,
-                                                s)
+      return i8 ? launch<int8_t, __nv_bfloat16>(
+                      vals, bc, slots, x, halo, acc, epilogue_sw, out,
+                      out_tail, B, R, M, ns_tiles, NX, NH, F, NA, s)
                 : launch<__nv_bfloat16, __nv_bfloat16>(
-                      vals, bc, x, halo, acc, epilogue_sw, out, out_tail, B,
-                      R, M, ns_tiles, NX, NH, F, NA, s);
+                      vals, bc, slots, x, halo, acc, epilogue_sw, out,
+                      out_tail, B, R, M, ns_tiles, NX, NH, F, NA, s);
     default:
       return cudaErrorInvalidValue;
   }

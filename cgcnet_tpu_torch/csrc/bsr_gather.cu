@@ -18,131 +18,103 @@
 // kernel follows the resident variant.) Rows of x at or past NC read as
 // zero; slots whose mask is 0 are skipped.
 //
-// Bound on the H100: operations — 2*128*128*F per real block slot on the
-// f32 CUDA cores (no TF32: the port keeps f32 exact); no block values move
-// through device memory, only the ELL (nbr, w), x and out. Design: B2's
-// kernel with the block built in shared memory instead of read from device
-// memory. One thread block of 256 threads per (b, r, column chunk of F);
-// for each live slot the threads zero a 128 x 129 f32 tile (padded against
-// bank conflicts), thread i < 128 adds row i's K weights into it in slot
-// order (one owner per row, no atomics: bit-equal with B1) and rounds the
-// row to T, then the tile times the matching [128 x FC] rows of x runs in
-// k-steps of 32 with an 8 x (FC/16) register tile of f32 sums per thread.
-// FC is 32, 64 or 128 by F. Shared memory: 66 KB of tile plus up to 16 KB
-// of x slice, dynamic. The build is redone for each column chunk (9 chunks
-// at F = 1140); a later version can keep it across chunks.
+// Bound on the H100: bytes. A row holds about K nonzeros of its 128 * M
+// block columns, so the dense product is ~99% multiplications by zero; the
+// function needs 2 * nnz * F operations and the bytes of the ELL, x and
+// out. Design: a gather over the nonzeros (gather.cuh). One warp a row of
+// the output, rows of consecutive row tiles in neighbouring blocks (L2
+// serves the re-reads of shared neighbours). For each live slot m in order,
+// the warp finds the distinct columns j of tile c_m among the row's K ELL
+// slots in ascending order (a warp minimum over the slots above the last
+// column), sums each column's weights in k order from 0.0 (a ballot, then
+// the lanes in order) and rounds the sum to T: block(b, r, m)[i, j], as B1
+// and a dense block product form it. A nonzero coefficient whose x row
+// lies below NC becomes a term; the terms are added into the row's f32 sums
+// in that order, lanes across F in the widest vectors that F and x's base
+// allow. The output is the dense product's fmaf chain without its zero
+// terms: bit-equal to it for finite x. An edge whose column tile is not
+// live for its row tile adds nothing; a tile listed in two live slots adds
+// twice; weights of 0 (self slots, padding) drop out.
 
-#include <type_traits>
-
-#include "common.cuh"
+#include "gather.cuh"
 
 namespace {
 
-constexpr int kBK = 32;
-constexpr int kThreads = 256;
-constexpr int kPitch = cgc::kTile + 1;
-constexpr int kTileFloats = cgc::kTile * kPitch;
+using cgc::gather::kFull;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 
-template <typename T, int CPT>
+template <typename T, int VEC, int NV>
 __global__ void __launch_bounds__(kThreads) bsr_gather_kernel(
     const int* __restrict__ nbr, const float* __restrict__ w,
     const int* __restrict__ blk_cols, const int* __restrict__ blk_mask,
-    const T* __restrict__ x, T* __restrict__ out, int N, int K, int R, int M,
-    int NC, int F) {
-  constexpr int FC = 16 * CPT;
-  extern __shared__ float smem[];
-  float* tile = smem;                        // [kTile][kPitch]
-  float* xs = smem + kTileFloats;            // [kBK][FC]
-
-  const long long br = blockIdx.y;  // b * R + r
-  const long long b = br / R;
-  const int r = static_cast<int>(br % R);
-  const int f0 = blockIdx.x * FC;
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
+    const T* __restrict__ x, T* __restrict__ out, int B, int N, int K, int R,
+    int M, int NC, int F) {
+  const int lane = threadIdx.x % 32;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (row >= static_cast<long long>(B) * N) return;  // the whole warp
+  const long long b = row / N;
+  const long long br = b * R + (row % N) / cgc::kTile;
+  const int* nb = nbr + row * K;
+  const float* wr = w + row * K;
   const T* xb = x + b * NC * static_cast<long long>(F);
-  // the ELL slots of this thread's tile row (threads t < 128 build)
-  const long long ell =
-      (b * N + static_cast<long long>(r) * cgc::kTile + (t % cgc::kTile)) * K;
-
-  float acc[8][CPT];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-  for (int m = 0; m < M; ++m) {
-    const long long blk = br * M + m;
-    if (blk_mask[blk] == 0) continue;  // the same for every thread
-    const int base = blk_cols[blk] * cgc::kTile;
-    for (int e = t; e < kTileFloats; e += kThreads) tile[e] = 0.f;
-    __syncthreads();
-    if (t < cgc::kTile) {
-      float* row = tile + t * kPitch;
-      for (int k = 0; k < K; ++k) {
-        const int c = nbr[ell + k] - base;
-        if (c >= 0 && c < cgc::kTile) row[c] += w[ell + k];
-      }
-      if constexpr (!std::is_same<T, float>::value) {
-        for (int c = 0; c < cgc::kTile; ++c) row[c] = cgc::round_to<T>(row[c]);
+  T* orow = out + row * F;
+  // the row's first 32 ELL slots and the row tile's first 32 block slots
+  // one a lane, read at once (the rest, where K or M pass 32, as needed)
+  const int nb0 = lane < K ? nb[lane] : 0;
+  const float w0 = lane < K ? wr[lane] : 0.f;
+  const int slot0 = lane < M ? blk_cols[br * M + lane] : 0;
+  const int live0 = lane < M ? blk_mask[br * M + lane] : 0;
+  const int nvec = F / VEC;
+  for (int v0 = 0; v0 < nvec; v0 += 32 * NV) {
+    cgc::gather::Row<T, VEC, NV> sum(v0, nvec);
+    for (int m = 0; m < M; ++m) {
+      const int live = m < 32 ? __shfl_sync(kFull, live0, m)
+                              : blk_mask[br * M + m];
+      if (live == 0) continue;
+      const int base = (m < 32 ? __shfl_sync(kFull, slot0, m)
+                               : blk_cols[br * M + m]) * cgc::kTile;
+      int last = -1;
+      for (;;) {
+        // the lowest column of this tile above the last one
+        unsigned col = UINT_MAX;
+        for (int k0 = 0; k0 < K; k0 += 32) {
+          const int k = k0 + lane;
+          const int c = (k0 == 0 ? nb0 : k < K ? nb[k] : 0) - base;
+          if (k < K && c > last && c < cgc::kTile)
+            col = min(col, static_cast<unsigned>(c));
+        }
+        col = __reduce_min_sync(kFull, col);
+        if (col == UINT_MAX) break;
+        last = static_cast<int>(col);
+        // its weights in k order from 0.0, as block(b, r, m) sums them
+        float coef = 0.f;
+        for (int k0 = 0; k0 < K; k0 += 32) {
+          const int k = k0 + lane;
+          const bool hit =
+              k < K && (k0 == 0 ? nb0 : nb[k]) - base == last;
+          const float wk = hit ? (k0 == 0 ? w0 : wr[k]) : 0.f;
+          for (unsigned bal = __ballot_sync(kFull, hit); bal; bal &= bal - 1)
+            coef += __shfl_sync(kFull, wk, __ffs(bal) - 1);
+        }
+        coef = cgc::round_to<T>(coef);
+        const int xr = base + last;
+        if (coef != 0.f && xr >= 0 && xr < NC) {
+          sum.reserve(1, lane);
+          sum.add(xb + static_cast<long long>(xr) * F, coef, lane);
+        }
       }
     }
-    __syncthreads();
-    for (int k0 = 0; k0 < cgc::kTile; k0 += kBK) {
-      for (int e = t; e < kBK * FC; e += kThreads) {
-        const int kk = e / FC, c = e % FC;
-        const int xr = base + k0 + kk;
-        const int f = f0 + c;
-        xs[kk * FC + c] =
-            (xr < NC && f < F)
-                ? cgc::to_f32(xb[static_cast<long long>(xr) * F + f])
-                : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        float av[8], bv[CPT];
+    sum.flush(lane);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = tile[(ty * 8 + i) * kPitch + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) bv[j] = xs[kk * FC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int j = 0; j < NV; ++j) {
+      const int v = v0 + lane + 32 * j;
+      if (v < nvec)
+        cgc::gather::store_vec<T, VEC>(orow + static_cast<long long>(v) * VEC,
+                                       sum.acc[j]);
     }
   }
-
-  T* ob = out + br * cgc::kTile * static_cast<long long>(F);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = ty * 8 + i;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int f = f0 + tx + 16 * j;
-      if (f < F) ob[static_cast<long long>(row) * F + f] = cgc::from_f32<T>(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, int CPT>
-cudaError_t launch_cpt(const int* nbr, const float* w, const int* blk_cols,
-                       const int* blk_mask, const T* x, T* out, int B, int N,
-                       int K, int R, int M, int NC, int F, cudaStream_t s) {
-  constexpr int FC = 16 * CPT;
-  constexpr size_t smem = sizeof(float) * (kTileFloats + kBK * FC);
-  cudaError_t err = cudaFuncSetAttribute(
-      bsr_gather_kernel<T, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((F + FC - 1) / FC, static_cast<unsigned>(B) * R);
-  if (grid.x > 0 && grid.y > 0) {
-    bsr_gather_kernel<T, CPT><<<grid, kThreads, smem, s>>>(
-        nbr, w, blk_cols, blk_mask, x, out, N, K, R, M, NC, F);
-  }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -151,14 +123,20 @@ cudaError_t launch(const int* nbr, const float* w, const int* blk_cols,
                    int K, int R, int M, int NC, int F, cudaStream_t s) {
   auto xx = static_cast<const T*>(x);
   auto o = static_cast<T*>(out);
-  if (F <= 32)
-    return launch_cpt<T, 2>(nbr, w, blk_cols, blk_mask, xx, o, B, N, K, R, M,
-                            NC, F, s);
-  if (F <= 64)
-    return launch_cpt<T, 4>(nbr, w, blk_cols, blk_mask, xx, o, B, N, K, R, M,
-                            NC, F, s);
-  return launch_cpt<T, 8>(nbr, w, blk_cols, blk_mask, xx, o, B, N, K, R, M, NC,
-                          F, s);
+  const long long rows = static_cast<long long>(B) * N;
+  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+  const int vec = cgc::gather::rows_vec<T>(F, {x, out});
+  return cgc::with_vec<T>(vec, [&](auto e) {
+    constexpr int E = decltype(e)::value;
+    return cgc::gather::with_nv(F / E, [&](auto nv) {
+      constexpr int NV = decltype(nv)::value;
+      if (blocks > 0 && F > 0) {
+        bsr_gather_kernel<T, E, NV><<<blocks, kThreads, 0, s>>>(
+            nbr, w, blk_cols, blk_mask, xx, o, B, N, K, R, M, NC, F);
+      }
+      return cudaGetLastError();
+    });
+  });
 }
 
 }  // namespace

@@ -12,9 +12,10 @@ path's A_loc @ [x ++ halo]: x's local column tiles and the halo rows come
 as two arrays, with an optional row accumulator (``acc``, split outputs)
 or a ``scale*(A@x) + self_w*x`` epilogue. The slide path stores its binary
 blocks in int8: B1 writes them and B2 and B8 convert them to x's type where
-they are used. B2 (every leg) and bf16 B8 legs at least 128 wide stop each
-row tile's walk at its last live slot (``live_slot_counts``, made once per
-set of blocks); bf16 B2 and those B8 legs run on the tensor cores.
+they are used. B2 and B8 stop each row tile's walk at its last live slot
+(``live_slot_counts``, made once per set of blocks); bf16 B2 and bf16 B8
+legs at least 128 wide run on the tensor cores, B7 and the other B8 legs
+gather over the nonzeros.
 
 Each device function has a plain PyTorch version of the same signature
 (``*_plain``). The wrapper takes the plain version only for tensors that lie
@@ -621,8 +622,9 @@ def bsr_matmul_banded(
     """B8. Same contract as :func:`bsr_matmul_banded_plain`; launches
     ``csrc/bsr_banded.cu`` for CUDA tensors (one kernel for the TPU's
     resident-tail and halo-window variants): bf16 x at F >= 128 on the
-    tensor cores, which stop each row tile's walk at ``live_slots`` when
-    given; f32 or narrower legs on the SIMT kernel."""
+    tensor cores, f32 or narrower legs on the gather over the blocks'
+    nonzeros; both stop each row tile's walk at ``live_slots`` when
+    given."""
     h_tiles, na = _banded_shapes(vals, blk_cols, win_base, x, ns_rows, halo,
                                  halo_win, acc, epilogue_sw)
     b, r, m = blk_cols.shape

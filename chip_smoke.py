@@ -8,7 +8,8 @@ Phases, each fatal on failure (exit code != 0):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build of the hand-written kernels from ``cgcnet_tpu_torch/csrc`` (nvcc),
    with the compiler's registers and spills of every instantiation of the
-   bf16 tensor-core kernels and of the heads' f32 product (``TC_KERNELS``);
+   bf16 tensor-core kernels, of the heads' f32 product and of the gathers
+   (B7, B8's SIMT kernel) (``TC_KERNELS``);
 3. kernels: B1 (block build, for A and for the binary transpose blocks),
    B2 (block-sparse matmul, at every width one training step gives it, on
    the forward and on the transpose blocks, walking the live slots the
@@ -728,6 +729,8 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
                 f"{err12:.3e} (tol {tol12:.3e})")
             if not err12 <= tol12:
                 raise SystemExit(f"B7 {which} F={f} disagrees with B1 -> B2")
+            bytes_ = b * n * k * 8 + b * r * m * 8 + 2 * b * n * f * isz
+            nnzb = int((blk_mask != 0).sum().item())
             record(
                 f"B7 bsr_gather_sum {which} {tag} B={b} N={n} K={k} M={m} F={f}",
                 "B7", dt_name, out, bsr.bsr_gather_sum_plain(*args),
@@ -735,15 +738,18 @@ def kernel_phase(seen: dict, gin_seen: dict, graph) -> list[dict]:
                 lambda args=args: bsr.bsr_gather_sum_plain(*args),
                 # the ELL (nbr, w), the block slots, x read once, out
                 # written once; no block values move through memory
-                bytes_=b * n * k * 8 + b * r * m * 8 + 2 * b * n * f * isz,
+                bytes_=bytes_,
                 # the function is out = sum_k w * x[nbr]: one multiply-add
-                # per real off-diagonal entry and column (the kernel's dense
-                # block products are its algorithm, not the function's)
+                # per real off-diagonal entry and column (the dense block
+                # products of the blocks built on the fly are an algorithm,
+                # not the function: their bound is kept beside it)
                 ops=2 * nnz * f, ops_dt="float32",
                 library=lambda args=args: _csr_library_call(*args),
                 source="cgcnet_tpu_torch/csrc/bsr_gather.cu",
                 replaces="cgcnet_tpu/ops/pallas/bsr_kernel.py:201 "
                          "(and :1204 bsr_gather_sum)",
+                extra={"nnz": nnz, "dense_bound_ms": bound_ms(
+                    bytes_, 2 * nnzb * t * t * f, "float32")},
             )
     return results
 
@@ -1664,20 +1670,9 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
     against their plain versions on the card, in f32 and bf16, on the inputs
     captured from phases 8-10 (one per distinct call shape), timed like
     phase 3."""
-    import numpy as np
     import torch
-    from cgcnet_tpu_torch.config import Config
-    from cgcnet_tpu_torch.dataflow import native
     from cgcnet_tpu_torch.ops import assign_head as ah
     from cgcnet_tpu_torch.ops import bsr
-    from cgcnet_tpu_torch.parallel.mega_graph import (
-        build_bsr_tables,
-        partition_graph,
-    )
-    from cgcnet_tpu_torch.parallel.slide_setup import (
-        spatial_sort_order,
-        synthetic_slide,
-    )
 
     t = bsr.TILE
     results = []
@@ -1711,52 +1706,9 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
     if not any("acc" in n for n in names) or len(b8_calls) < 3:
         raise SystemExit(f"B8 calls captured: {names}")
 
-    # the halo-window variant: shard 0 of a 4-shard stripe-sorted partition
-    cfg = Config()
-    shards = HALO_SHARDS
-    f0, c0 = synthetic_slide(HALO_NUCLEI)
-    q = t * bsr.G_BAND * shards
-    cap = -(-HALO_NUCLEI // q) * q
-    order = spatial_sort_order(c0, cfg.data.max_edge_distance, stripes=shards,
-                               shard_rows=cap // shards)
-    nbr, mask = native.radius_knn(c0[order], cfg.data.max_edge_distance,
-                                  cfg.data.max_neighbours)
-    nbrp = np.tile(np.arange(cap, dtype=np.int32)[:, None], (1, nbr.shape[1]))
-    maskp = np.zeros((cap, nbr.shape[1]), np.float32)
-    nbrp[:len(nbr)], maskp[:len(nbr)] = nbr, mask
-    part = partition_graph(nbrp, maskp, shards)
-    tab = build_bsr_tables(part)
-    if tab is None or tab.win_halo is None:
-        raise SystemExit("the 4-shard partition built no halo-window table")
-    ns = cap // shards
-    nb0 = torch.as_tensor(part.nbr_remap[0], device=device)
-    off0 = torch.as_tensor(part.nbr_mask[0], device=device) * (
-        nb0 != torch.arange(ns, device=device)[:, None])
-    bc0 = torch.as_tensor(tab.blk_cols[0], device=device)
-    bm0 = torch.as_tensor(tab.blk_mask[0], device=device)
-    vals0 = bsr.bsr_build_blocks(nb0[None], off0[None], bc0[None], bm0[None],
-                                 torch.int8)
     gen = torch.Generator(device=device).manual_seed(11)
-    f_s = HALO_F
-    x_h = torch.randn((1, ns, f_s), generator=gen, device=device)
-    halo_h = torch.randn((1, tab.nc - ns, f_s), generator=gen, device=device)
-    log(f"  halo windows: shard 0 of {shards}, {ns} rows, halo "
-        f"{tab.nc - ns} rows, M {tab.blk_cols.shape[-1]}")
     b8_cases = [(n, a, k) for n, (a, k) in zip(names, b8_calls)]
-    # the window contract held once for these tables, as the slide path
-    # holds it once per slide (mega_model.check_windows); the launches then
-    # skip the per-call check, as the path's do
-    win0 = torch.as_tensor(tab.win_base[0:1], device=device)
-    hwin0 = torch.as_tensor(tab.win_halo[0:1], device=device)
-    bsr.check_band_windows(bc0[None], bm0[None] > 0, win0, ns,
-                           (tab.nc - ns) // t, hwin0)
-    b8_cases.append((
-        f"A@S halo windows (shard 0 of {shards}) F={f_s}",
-        [vals0, bc0[None], win0, x_h],
-        {"ns_rows": ns, "halo": halo_h, "halo_win": hwin0,
-         "check_windows": False,
-         "live_slots": bsr.live_slot_counts(bm0[None])},
-    ))
+    b8_cases.append(halo_window_case(device, gen))
     # the epilogue option, on the training A@S leg's inputs
     base_args, base_kw = next((a, k) for n, (a, k) in zip(names, b8_calls)
                               if n.startswith("A@S F=1152"))
@@ -1779,26 +1731,18 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
             a = (vals, blk_cols, win, x)
             out = bsr.bsr_matmul_banded(*a, **kw)
             ref = bsr.bsr_matmul_banded_plain(*a, **kw)
-            bm = kw.get("blk_mask")
-            live = (bm > 0) if bm is not None else vals.reshape(
-                *vals.shape[:3], -1).ne(0).any(-1)
-            nnzb = int(live.sum().item())
             _, r, m = blk_cols.shape
-            f = x.shape[-1]
-            nh = kw["halo"].shape[1] if kw.get("halo") is not None else 0
-            extra = sum(kw[k].numel() * isz for k in ("acc", "epilogue_sw")
-                        if kw.get(k) is not None)
+            work = banded_work(vals, blk_cols, x, kw)
             record(
                 f"B8 bsr_matmul_banded {name} {tag} R={r} M={m}", "B8",
                 dt_name, out, ref,
                 lambda a=a, kw=kw: bsr.bsr_matmul_banded(*a, **kw),
                 lambda a=a, kw=kw: bsr.bsr_matmul_banded_plain(*a, **kw),
-                # real block slots (int8), their column ids, x and the halo
-                # read once, the output written once, acc / sw read once
-                bytes_=nnzb * t * t + r * m * 4 + (x.shape[1] + nh) * f * isz
-                + r * t * f * isz + extra,
-                ops=2 * nnzb * t * t * f,
-                library=lambda a=a, kw=kw, live=live:
+                # the function's work: 2 F per nonzero entry of the live
+                # blocks (``banded_work``); the dense block product's bound
+                # is kept beside it
+                bytes_=work["bytes"], ops=work["ops"],
+                library=lambda a=a, kw=kw, live=work["live"]:
                     _banded_library_call(*a, kw.get("halo"), live),
                 source="cgcnet_tpu_torch/csrc/bsr_banded.cu",
                 replaces=("cgcnet_tpu/ops/pallas/bsr_kernel.py:966 (:1097 "
@@ -1808,6 +1752,8 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
                 # the halo-window kernel (:1097) runs at more than one
                 # shard only: no path of this run launches it
                 paths=() if "halo windows" in name else SLIDE_PATHS,
+                extra={"nnz": work["nnz"], "dense_bound_ms": bound_ms(
+                    work["bytes"], work["dense_ops"], dt_name)},
             )
         # ---- B3, B4 (serving, and training's lane-padded c_out) and B5
         # (the training call and the capacity path's chunks) at the slide's
@@ -1959,6 +1905,99 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
     return results, stats
 
 
+def halo_window_case(device, gen) -> tuple:
+    """(name, args, kwargs) of B8's halo-window variant: shard 0 of the
+    slide stripe-sorted for HALO_SHARDS shards (a partition whose halo
+    outgrows the resident tail), its int8 blocks built by B1, x and the
+    halo drawn from ``gen`` at HALO_F columns. The window contract is held
+    once here, as the slide path holds it once per slide
+    (mega_model.check_windows); the call then skips the per-call check."""
+    import numpy as np
+    import torch
+    from cgcnet_tpu_torch.config import Config
+    from cgcnet_tpu_torch.dataflow import native
+    from cgcnet_tpu_torch.ops import bsr
+    from cgcnet_tpu_torch.parallel.mega_graph import (
+        build_bsr_tables,
+        partition_graph,
+    )
+    from cgcnet_tpu_torch.parallel.slide_setup import (
+        spatial_sort_order,
+        synthetic_slide,
+    )
+
+    t = bsr.TILE
+    cfg = Config()
+    shards = HALO_SHARDS
+    f0, c0 = synthetic_slide(HALO_NUCLEI)
+    q = t * bsr.G_BAND * shards
+    cap = -(-HALO_NUCLEI // q) * q
+    order = spatial_sort_order(c0, cfg.data.max_edge_distance, stripes=shards,
+                               shard_rows=cap // shards)
+    nbr, mask = native.radius_knn(c0[order], cfg.data.max_edge_distance,
+                                  cfg.data.max_neighbours)
+    nbrp = np.tile(np.arange(cap, dtype=np.int32)[:, None], (1, nbr.shape[1]))
+    maskp = np.zeros((cap, nbr.shape[1]), np.float32)
+    nbrp[:len(nbr)], maskp[:len(nbr)] = nbr, mask
+    part = partition_graph(nbrp, maskp, shards)
+    tab = build_bsr_tables(part)
+    if tab is None or tab.win_halo is None:
+        raise SystemExit("the 4-shard partition built no halo-window table")
+    ns = cap // shards
+    nb0 = torch.as_tensor(part.nbr_remap[0], device=device)
+    off0 = torch.as_tensor(part.nbr_mask[0], device=device) * (
+        nb0 != torch.arange(ns, device=device)[:, None])
+    bc0 = torch.as_tensor(tab.blk_cols[0], device=device)
+    bm0 = torch.as_tensor(tab.blk_mask[0], device=device)
+    vals0 = bsr.bsr_build_blocks(nb0[None], off0[None], bc0[None], bm0[None],
+                                 torch.int8)
+    f_s = HALO_F
+    x_h = torch.randn((1, ns, f_s), generator=gen, device=device)
+    halo_h = torch.randn((1, tab.nc - ns, f_s), generator=gen, device=device)
+    log(f"  halo windows: shard 0 of {shards}, {ns} rows, halo "
+        f"{tab.nc - ns} rows, M {tab.blk_cols.shape[-1]}")
+    win0 = torch.as_tensor(tab.win_base[0:1], device=device)
+    hwin0 = torch.as_tensor(tab.win_halo[0:1], device=device)
+    bsr.check_band_windows(bc0[None], bm0[None] > 0, win0, ns,
+                           (tab.nc - ns) // t, hwin0)
+    return (f"A@S halo windows (shard 0 of {shards}) F={f_s}",
+            [vals0, bc0[None], win0, x_h],
+            {"ns_rows": ns, "halo": halo_h, "halo_win": hwin0,
+             "check_windows": False, "blk_mask": bm0[None],
+             "live_slots": bsr.live_slot_counts(bm0[None])})
+
+
+def banded_work(vals, blk_cols, x, kw) -> dict:
+    """What one B8 call must move and compute: ``bytes`` — the live block
+    slots' values, their column ids, x and the halo read once, the output
+    written once, acc / epilogue_sw read once; ``ops`` — 2 * F per nonzero
+    entry of the live blocks (the function's multiply-adds: the blocks are
+    binary and ~1% full on the slide); ``dense_ops`` — 2 * 128 * 128 * F
+    per live slot (the dense block product's). Live slots from
+    ``kw["blk_mask"]`` where given, else the blocks holding an entry."""
+    t = vals.shape[-1]
+    b, r, m = blk_cols.shape
+    flat = vals.reshape(b, r, m, -1)
+    bm = kw.get("blk_mask")
+    live = (bm.reshape(b, r, m) > 0) if bm is not None else flat.ne(0).any(-1)
+    nnzb = int(live.sum().item())
+    nnz = int(flat[live].ne(0).sum().item())
+    f, isz = x.shape[-1], x.element_size()
+    nh = kw["halo"].shape[1] if kw.get("halo") is not None else 0
+    extra = sum(kw[k].numel() * isz for k in ("acc", "epilogue_sw")
+                if kw.get(k) is not None)
+    return {"live": live, "nnz": nnz,
+            "bytes": nnzb * t * t * vals.element_size() + b * r * m * 4
+            + (x.shape[1] + nh) * f * isz + b * r * t * f * isz + extra,
+            "ops": 2 * nnz * f, "dense_ops": 2 * nnzb * t * t * f}
+
+
+def bound_ms(bytes_, ops, dt_name) -> float:
+    """The least time the card could take: the larger of bytes at the HBM
+    rate and operations at the type's peak, in ms."""
+    return max(bytes_ / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[dt_name]) * 1e3
+
+
 def _banded_library_call(vals, blk_cols, win, x, halo, live):
     """One PyTorch call computing B8's function: ``torch.sparse_bsr_tensor``
     over the live block slots (values converted to x's type once, not
@@ -2066,9 +2105,10 @@ def slice_phase(tmp: Path, device) -> dict:
 
 
 # the kernels whose compiler report phase 2 must hold: the bf16
-# tensor-core kernels, and the heads' f32 product on the CUDA cores
+# tensor-core kernels, the heads' f32 product on the CUDA cores, and the
+# gathers over the nonzeros (B7, B8's SIMT kernel)
 TC_KERNELS = ("banded_tc_kernel", "gemm_tc_kernel", "bsr_matmul_tc_kernel",
-              "gemm_kernel")
+              "gemm_kernel", "banded_kernel", "bsr_gather_kernel")
 
 
 def tc_report(build_log: str) -> None:

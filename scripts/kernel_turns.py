@@ -25,6 +25,17 @@ on inputs made from seeds. Groups of legs (``--legs``, default all):
 - ``b1``: B1 (``bsr_build_blocks``) on a patch batch's A (as ``b2``) in f32
   and bf16, and on the slide's int8 blocks of A and of its transpose (as
   ``parallel.mega_model.build_vals`` builds them);
+- ``b7``: B7 (``bsr_gather_sum``) on a patch batch (as ``b2``) over its
+  binary off-diagonal operator A and over A^T (its in-edge lists, the
+  loader's transpose and block capacity), as ``chip_smoke.py`` phase 3
+  runs it, at F = 18, 20 and 1140, in f32 and bf16;
+- ``b8``: B8 (``bsr_matmul_banded``) on the synthetic 100k-nuclei slide's
+  int8 blocks (as ``b2``), phase 10's legs: A@S at F=1140 over [x ++
+  halo], A^T g with the row accumulator and split outputs at F=1152, A@S
+  with the epilogue at F=1152, and the halo windows of shard 0 of a
+  4-shard partition at F=1152 (``chip_smoke.halo_window_case``), in f32
+  (the gather kernel) and bf16 (the tensor-core kernel, untouched: a
+  check);
 - ``head``: in bf16 and f32, one whole-slide B4 call
   (``assign_head_softmax_pre``: 100352 rows, 100000 real, F12=40, C=1140)
   and one B9a call (``assign_head_softmax_pre_lin``, F3=20), and one B4
@@ -56,7 +67,17 @@ at the type's peak, or bytes, as chip_smoke.py counts them),
 ``product_library_ms`` (the product alone as one cuBLAS call,
 ``chip_smoke.product_library_ms``) and ``s_sha256``, the first 16 hex
 digits of the SHA-256 of S's bytes, so two commits' S can be compared bit
-for bit. Imports nothing of JAX. Needs a card.
+for bit; ``b7`` and ``b8`` legs ``bound_ms`` and ``bound_share`` (bytes
+over 3.35 TB/s or 2 F operations per nonzero at the type's peak, the
+larger, as chip_smoke.py counts them: B7 the ELL, slot tables, x and out,
+B8 ``chip_smoke.banded_work``), ``dense_bound_ms`` (the dense block
+product's operations in its place), ``library_ms`` (one PyTorch call for
+the function: CSR for B7, ``torch.sparse_bsr_tensor`` for B8, as
+chip_smoke.py times them), ``nnz`` (the operator's nonzeros) and
+``sha256``, the first 16 hex digits of the SHA-256 of the output's
+bytes. Imports nothing of JAX. Needs a card.
+
+    python3 scripts/kernel_turns.py --legs b7,b8       # the gathers
 """
 
 from __future__ import annotations
@@ -75,7 +96,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 SLIDE_NUCLEI, F3, F12, C = 100_000, 20, 40, 1140
 PATCH_B, PATCH_N, CAPS = 4, 5760, (4, 6, 8, 12, 16)
-GROUPS = ("b2", "b9b", "b5", "head", "b3", "b1")
+GROUPS = ("b2", "b9b", "b5", "head", "b3", "b1", "b7", "b8")
 PATCH_REAL = [4000, 5760, 4800, 5321]
 _SLIDE = {}
 
@@ -294,6 +315,142 @@ def b1_legs(bsr, knn, dev) -> list:
     return legs
 
 
+def digest(out) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's (or a tuple of
+    tensors') bytes."""
+    import torch
+
+    outs = out if isinstance(out, tuple) else (out,)
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def library_ms(cs, make, reps: int):
+    """ms of the library call ``make()`` returns (its set-up untimed), or
+    None where this PyTorch has no such call (as chip_smoke.py records
+    it)."""
+    try:
+        return cs.time_ms(make(), reps=reps)
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"library call unavailable: {e}", file=sys.stderr)
+        return None
+
+
+def patch_tables(knn, bsr) -> dict:
+    """{"A": ..., "A^T": ...}: (nbr, w, blk_cols, blk_mask) numpy of
+    ``patch_batch``'s binary off-diagonal operator and of its in-edge lists
+    (the loader's transpose: width doubled from 8 until every graph fits,
+    self slots and padding at weight 0; block capacity as the loader
+    quantizes it) — the operators phase 3 of chip_smoke.py runs B7 on."""
+    from cgcnet_tpu_torch.core.convert import transpose_ell_np
+
+    nbr, w, _, _ = patch_batch(knn, bsr)
+    row = np.arange(PATCH_N)[:, None]
+    mask = (w != 0).astype(np.float32)
+    width = 8
+    while max(np.bincount(nb[m > 0], minlength=PATCH_N).max()
+              for nb, m in zip(nbr, mask)) > width:
+        width *= 2
+    tr = [transpose_ell_np(nb, m, width)[:2] for nb, m in zip(nbr, mask)]
+    out = {}
+    for which, (nb, m) in (("A", (nbr, mask)),
+                           ("A^T", tuple(np.stack(a) for a in zip(*tr)))):
+        need = max(bsr.bsr_blocks_needed(n_, m_) for n_, m_ in zip(nb, m))
+        cap = next(c for c in CAPS if c >= need)
+        cols, masks = zip(*(bsr.bsr_block_meta(n_, m_, cap)[:2]
+                            for n_, m_ in zip(nb, m)))
+        off = (m * (nb != row[None])).astype(np.float32)
+        out[which] = (nb.astype(np.int32), off,
+                      np.stack(cols).astype(np.int32), np.stack(masks))
+    return out
+
+
+def b7_legs(bsr, knn, cs, dev, rnd, reps: int) -> list:
+    """(name, call, bound ms, extra fields) of B7 (module docstring)."""
+    import torch
+
+    legs = []
+    for which, host in patch_tables(knn, bsr).items():
+        nbr, w, cols, mask = (torch.from_numpy(a).to(dev) for a in host)
+        b, n, k = nbr.shape
+        r, m = cols.shape[1:]
+        nnz = int((w != 0).sum().item())
+        nnzb = int((mask != 0).sum().item())
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            isz = torch.empty((), dtype=dt).element_size()
+            for f in (18, 20, 1140):
+                x = rnd(b, n, f).to(dt)
+                args = (nbr, w, cols, mask, x)
+                fn = lambda args=args: bsr.bsr_gather_sum(*args)  # noqa: E731
+                bytes_ = b * n * k * 8 + b * r * m * 8 + 2 * b * n * f * isz
+                extra = {
+                    "nnz": nnz,
+                    "dense_bound_ms": cs.bound_ms(
+                        bytes_, 2 * nnzb * bsr.TILE ** 2 * f, "float32"),
+                    "library_ms": library_ms(
+                        cs, lambda: cs._csr_library_call(*args), reps),
+                    "sha256": digest(fn())}
+                legs.append((f"B7 {which} {tag} B={b} N={n} K={k} M={m} "
+                             f"F={f}", fn,
+                             cs.bound_ms(bytes_, 2 * nnz * f, "float32"),
+                             extra))
+    return legs
+
+
+def b8_legs(bsr, cs, dev, rnd, reps: int) -> list:
+    """(name, call, bound ms, extra fields) of B8 (module docstring)."""
+    import torch
+
+    inp = slide_inputs(dev)
+    ns, nc = inp.nbr_remap.shape[0], inp.nbr_t.shape[0]
+    win, win_t = inp.win_base.reshape(1, -1), inp.win_base_t.reshape(1, -1)
+    a_kw = {"ns_rows": ns, "check_windows": False,
+            "live_slots": inp.slots[None], "blk_mask": inp.blk_mask[None]}
+    t_kw = {"ns_rows": ns, "check_windows": False,
+            "live_slots": inp.slots_t[None],
+            "blk_mask": inp.blk_mask_t[None]}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sw = torch.zeros((1, ns, 128), device=dev)
+    sw[0, :, 0], sw[0, :, 1] = torch.rand(ns, generator=gen, device=dev), 0.4
+    cases = [  # (name, vals, blk_cols, win, x rows, F, kwargs of x's type)
+        ("A@S", inp.vals, inp.blk_cols[None], win, ns, 1140,
+         {**a_kw, "halo": (1, nc - ns)}),
+        ("A^T g + acc (split outputs)", inp.vals_t, inp.blk_cols_t[None],
+         win_t, ns, 1152, {**t_kw, "acc": (1, ns)}),
+        ("A@S + epilogue_sw", inp.vals, inp.blk_cols[None], win, ns, 1152,
+         {**a_kw, "halo": (1, nc - ns), "epilogue_sw": sw}),
+    ]
+    hname, (hv, hc, hwin, hx), hkw = cs.halo_window_case(dev, gen)
+    legs = []
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        runs = []
+        for name, vals, cols, w_, rows, f, kw in cases:
+            kw = {k: (rnd(*v, f).to(dt) if isinstance(v, tuple)
+                      else v.to(dt) if k == "epilogue_sw" else v)
+                  for k, v in kw.items()}
+            runs.append((f"{name} F={f}", (vals, cols, w_,
+                                           rnd(1, rows, f).to(dt)), kw))
+        runs.append((hname, (hv, hc, hwin, hx.to(dt)),
+                     {k: v.to(dt) if k == "halo" else v
+                      for k, v in hkw.items()}))
+        for name, a, kw in runs:
+            fn = lambda a=a, kw=kw: bsr.bsr_matmul_banded(*a, **kw)  # noqa
+            work = cs.banded_work(a[0], a[1], a[3], kw)
+            extra = {
+                "nnz": work["nnz"],
+                "dense_bound_ms": cs.bound_ms(work["bytes"],
+                                              work["dense_ops"], str(dt)[6:]),
+                "library_ms": library_ms(cs, lambda: cs._banded_library_call(
+                    *a, kw.get("halo"), work["live"]), reps),
+                "sha256": digest(fn())}
+            legs.append((f"B8 {name} {tag}", fn,
+                         cs.bound_ms(work["bytes"], work["ops"], str(dt)[6:]),
+                         extra))
+    return legs
+
+
 def head_legs(ah, cs, dev, rnd, calls: int):
     """One line per head leg (module docstring), made one leg at a time:
     the device ms of each launch (``chip_smoke.head_split``) and their sum,
@@ -408,7 +565,12 @@ def main() -> int:
             legs.append((name, fn, bound))
     if "b1" in groups:
         legs += b1_legs(bsr, knn, dev)
-    for name, fn, bound in legs:
+    legs = [(*leg, {}) if len(leg) == 3 else leg for leg in legs]
+    if "b7" in groups:
+        legs += b7_legs(bsr, knn, cs, dev, rnd, args.reps)
+    if "b8" in groups:
+        legs += b8_legs(bsr, cs, dev, rnd, min(args.reps, 5))
+    for name, fn, bound, extra in legs:
         ms = cs.time_ms(fn, reps=args.reps)
         dev_ms, split = device_ms(fn)
         line = {"root": args.root, "leg": name, "ms": ms,
@@ -421,6 +583,7 @@ def main() -> int:
                 line["bound_share"] = bound / dev_ms
         if name in sums:
             line["sha256"] = sums[name]
+        line.update(extra)
         print(json.dumps(line), flush=True)
     del legs
     _SLIDE.clear()

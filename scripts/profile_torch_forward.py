@@ -8,14 +8,16 @@ of one canonical training step, on the patch path or on a whole slide.
     python3 scripts/profile_torch_forward.py --slide               # mega_forward
     python3 scripts/profile_torch_forward.py --slide --train       # slide step
     python3 scripts/profile_torch_forward.py --slide --train --capacity
+    python3 scripts/profile_torch_forward.py --slide model.compute_dtype=float32
 
 Needs one GPU. The patch path: the same synthetic canonical batch and
 seeded model as ``chip_smoke.py`` (B=4 graphs padded to N=5760, C=1140,
 f32; config overrides such as ``model.gcn_name=GIN`` select another model),
 a few forwards (or optimizer steps through ``train.loop.make_train_step``).
 ``--slide``: a synthetic slide of ``--nuclei`` nuclei (100000: 100352
-rows, one shard) in bf16, as ``chip_smoke.py`` phases 8-10 run it, with a
-seeded model: ``parallel.mega_model.mega_forward`` in eval mode, or with
+rows, one shard) in bf16, as ``chip_smoke.py`` phases 8-10 run it, or in
+f32 with the override ``model.compute_dtype=float32``, with a seeded
+model: ``parallel.mega_model.mega_forward`` in eval mode, or with
 ``--train`` one step of ``parallel.mega_train.make_slide_train_step``
 without chunking, or with ``--capacity`` on the capacity path
 (``chip_smoke.SLIDE_CAPACITY``: ``model.assign_tail_chunk=65536
@@ -109,7 +111,9 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="profile optimizer steps instead of eval forwards")
     ap.add_argument("--slide", action="store_true",
-                    help="the whole-slide path (bf16) instead of the patches")
+                    help="the whole-slide path instead of the patches, in "
+                         "bf16 unless an override sets "
+                         "model.compute_dtype=float32")
     ap.add_argument("--capacity", action="store_true",
                     help="with --slide --train: the capacity path's step")
     ap.add_argument("--nuclei", type=int, default=100_000,

@@ -15,7 +15,9 @@ against the exact (f64) statistics at ops/assign_head.STATS_TOL, and B5's
 rows past n_nodes are held to be exact zeros. B3's row norm is held bit
 for bit to B4's on the same p, and B1 bit for bit to its plain version
 computed on the CPU (on the card the plain version's scatter adds a
-column's slots in no fixed order). Gradients, card vs CPU:
+column's slots in no fixed order). B7 and B8's gather kernel are also
+held bit for bit (``torch.equal``) on exact data: small integers and
+multiples of 1/8, whose sums are exact in any order. Gradients, card vs CPU:
 1e-4 of max|grad| (f32 sums in another order through the same formulas).
 """
 
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from cgcnet_tpu_torch.core.convert import transpose_ell_np
 from cgcnet_tpu_torch.ops import assign_head as ah
 from cgcnet_tpu_torch.ops import bsr
 from cgcnet_tpu_torch.ops.ell import bsr_matmul_precomp, bsr_spmm_factored
@@ -1082,3 +1085,170 @@ def test_b1_matches_plain_exactly(device, dtype, k, m, spread, extra):
     assert not got[masks == 0].any()
     if dtype == torch.int8 and "dups" in extra:
         assert (got > 1).any()  # the duplicates summed, then truncated
+
+
+# ---------------------------------------------------------------------------
+# the gathers over the nonzeros: B7, and B8 in f32 and bf16 below 128 columns
+# ---------------------------------------------------------------------------
+
+def _b7_tables(seed, table, b=2, n=1024, k=8):
+    """(nbr, w, blk_cols, blk_mask) numpy of a patch batch's A (norm_adj
+    weights) or A^T (its in-edge lists, weights in [0.5, 1.5)), M = 8, with
+    B7's cases planted in every graph: two slots of row 5 name one column;
+    row 130 names a column in a tile not listed for its row tile; row tile
+    2 lists its first tile in two live slots; row tile 3's first slot is a
+    hole (masked) before live ones."""
+    nbr, w, cols, masks, _ = (t.numpy().copy()
+                              for t in _graph(seed, b=b, cap=n, k=k))
+    if table == "A^T":
+        rng = np.random.default_rng(seed + 100)
+        tr = [transpose_ell_np(nbr[i], (w[i] != 0).astype(np.float32), 64)
+              for i in range(b)]
+        kt = max(t[2] for t in tr)
+        nbr = np.stack([t[0][:, :kt] for t in tr])
+        mt = np.stack([t[1][:, :kt] for t in tr])
+        w = (mt * rng.uniform(0.5, 1.5, mt.shape)).astype(np.float32)
+        meta = [bsr.bsr_block_meta(nbr[i], mt[i], 8) for i in range(b)]
+        cols = np.stack([c for c, _, _ in meta])
+        masks = np.stack([m for _, m, _ in meta])
+    nbr[:, 5, 1], w[:, 5, :2] = nbr[:, 5, 0], (0.75, 0.5)
+    for i in range(b):
+        live = set(cols[i, 1][masks[i, 1] > 0].tolist())
+        far = next(c for c in range(n // 128) if c not in live)
+        nbr[i, 130, 2], w[i, 130, 2] = far * 128 + 7, 1.25
+        free = int(np.flatnonzero(masks[i, 2] == 0)[0])
+        cols[i, 2, free], masks[i, 2, free] = cols[i, 2, 0], 1.0
+    assert masks[:, 3, 0].all() and masks[:, 3, 1].all()
+    masks[:, 3, 0] = 0.0
+    return nbr, w, cols, masks
+
+
+@pytest.mark.parametrize("f", [18, 40, 1140, 1141])
+@pytest.mark.parametrize("table", ["A", "A^T"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b7_gather_matches_plain(device, dtype, table, f):
+    """B7 against its plain version at TOL on a batch's A and A^T tables
+    with its cases planted (``_b7_tables``) and x of fewer rows than N (the
+    rows past NC read as zero), with x aligned and one element off its
+    base (the narrow loads); the same bits on a second call; and on exact
+    data (x small integers, weights multiples of 1/8, so every sum is exact
+    in any order) bit-equal to the plain version."""
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    host = _b7_tables(f, table)
+    nbr, w, cols, masks = (torch.from_numpy(a).to(device) for a in host)
+    b, n = nbr.shape[:2]
+    nc = n - 60  # the last tile ragged: rows past NC read as zero
+    gen = torch.Generator(device=device).manual_seed(f)
+    buf = torch.randn(b * nc * f + 1, generator=gen, device=device).to(dtype)
+    for x in (buf[:-1].view(b, nc, f), buf[1:].view(b, nc, f)):
+        launches = bsr.bsr_gather_sum.launches
+        out = bsr.bsr_gather_sum(nbr, w, cols, masks, x)
+        assert bsr.bsr_gather_sum.launches == launches + 1
+        assert out.shape == (b, n, f) and out.dtype == dtype
+        _close(out, bsr.bsr_gather_sum_plain(nbr, w, cols, masks, x), tol)
+        assert torch.equal(out, bsr.bsr_gather_sum(nbr, w, cols, masks, x))
+    rng = np.random.default_rng(f)
+    w8 = torch.from_numpy(((host[1] != 0) * rng.integers(-8, 9, host[1].shape)
+                           / 8).astype(np.float32)).to(device)
+    xi = torch.from_numpy(rng.integers(-3, 4, (b, nc, f)).astype(
+        np.float32)).to(device).to(dtype)
+    for x in (xi, torch.cat([xi.reshape(-1)[:1], xi.reshape(-1)])[1:].view(
+            b, nc, f)):
+        assert torch.equal(bsr.bsr_gather_sum(nbr, w8, cols, masks, x),
+                           bsr.bsr_gather_sum_plain(nbr, w8, cols, masks, x))
+    if f == 1140:
+        names = _kernel_names(lambda: bsr.bsr_gather_sum(nbr, w, cols, masks,
+                                                         xi))
+        assert any("bsr_gather_kernel" in nm for nm in names), names
+
+
+def _banded_gather_cases(f, dtype, kind, exact, gen):
+    """B8 cases (args, kwargs) on CPU tensors: the resident halo tail in
+    its own array and inside x, the epilogue, acc with split outputs (F a
+    multiple of 128), halo windows; a hole before live slots. Blocks: int8
+    (binary), binary in x's type, or dense random in x's type (``kind``);
+    with ``exact`` x, halo and acc are small integers and the dense blocks
+    and the epilogue's lanes multiples of 1/8."""
+    def draw(*s):
+        if exact:
+            return torch.randint(-3, 4, s, generator=gen).float()
+        return torch.randn(s, generator=gen)
+
+    def blocks(vals, mask):
+        v = torch.from_numpy(vals)
+        if kind == "binary":
+            return v.to(dtype)
+        if kind == "dense":
+            d = (torch.randint(-8, 9, v.shape, generator=gen) / 8 if exact
+                 else torch.randn(v.shape, generator=gen))
+            return (d * torch.from_numpy(mask)[..., None, None]).to(dtype)
+        return v
+
+    cols, mask, vals = _banded(8)
+    mask[0, 3, 0], vals[0, 3, 0] = 0.0, 0  # a hole before live slots
+    win = torch.from_numpy(bsr.band_window_table(cols[0], mask[0], 16))[None]
+    c, v = torch.from_numpy(cols), blocks(vals, mask)
+    x, halo = draw(1, 2048, f).to(dtype), draw(1, 128, f).to(dtype)
+    sw = torch.zeros(1, 2048, 128)
+    sw[0, :, 0] = (torch.randint(1, 9, (2048,), generator=gen) / 8 if exact
+                   else torch.rand(2048, generator=gen))
+    sw[0, :, 1] = 0.375 if exact else 0.4
+    xx = torch.cat([x, halo], 1)
+    cases = [((v, c, win, x, 2048), {"halo": halo, "blk_mask": mask}),
+             ((v, c, win, xx, 2048), {"blk_mask": mask}),
+             ((v, c, win, x, 2048), {"halo": halo, "blk_mask": mask,
+                                     "epilogue_sw": sw.to(dtype)})]
+    if f % 128 == 0:
+        cases.append(((v, c, win, xx, 2048),
+                      {"acc": draw(1, 3 * 512, f).to(dtype),
+                       "blk_mask": mask}))
+    cols_h, mask_h, vals_h = _banded(9, h_total=12)
+    tabs = bsr.band_window_table_halo(cols_h[0], mask_h[0], 16, 12)
+    cases.append(((blocks(vals_h, mask_h), torch.from_numpy(cols_h),
+                   torch.from_numpy(tabs[0])[None], x, 2048),
+                  {"halo": draw(1, 12 * 128, f).to(dtype),
+                   "halo_win": torch.from_numpy(tabs[1])[None],
+                   "blk_mask": mask_h}))
+    return [(a, {k: torch.from_numpy(t) if isinstance(t, np.ndarray) else t
+                 for k, t in kw.items()}) for a, kw in cases]
+
+
+@pytest.mark.parametrize("kind", ["int8", "binary", "dense"])
+@pytest.mark.parametrize("f,dtype", [(64, torch.float32),
+                                     (1140, torch.float32),
+                                     (1152, torch.float32),
+                                     (64, torch.bfloat16)])
+def test_banded_gather_matches_plain(device, f, dtype, kind):
+    """B8's gather kernel (f32 at every width, bf16 below 128 columns)
+    against its plain version at TOL on ``_banded_gather_cases``, with the
+    live slot count given and not; the same bits on a second call; on exact
+    data bit-equal to the plain version; the tensor-core kernel not
+    launched."""
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    gen = torch.Generator().manual_seed(f + len(kind))
+    for exact in (False, True):
+        for args, kw in _banded_gather_cases(f, dtype, kind, exact, gen):
+            ref = bsr.bsr_matmul_banded_plain(*args, **kw)
+            dev_args = [a.to(device) if isinstance(a, torch.Tensor) else a
+                        for a in args]
+            dev_kw = {k: t.to(device) for k, t in kw.items()}
+            for live in (None, bsr.live_slot_counts(dev_kw["blk_mask"])):
+                launches = bsr.bsr_matmul_banded.launches
+                out = bsr.bsr_matmul_banded(*dev_args, **dev_kw,
+                                            live_slots=live)
+                assert bsr.bsr_matmul_banded.launches == launches + 1
+                again = bsr.bsr_matmul_banded(*dev_args, **dev_kw,
+                                              live_slots=live)
+                outs = out if isinstance(out, tuple) else (out,)
+                refs = ref if isinstance(ref, tuple) else (ref,)
+                agains = again if isinstance(again, tuple) else (again,)
+                for o, r, a in zip(outs, refs, agains):
+                    assert torch.equal(o, a)
+                    if exact:
+                        assert torch.equal(o, r.to(device))
+                    else:
+                        _close(o, r.to(device), tol)
+    names = _kernel_names(lambda: bsr.bsr_matmul_banded(
+        *dev_args, **dev_kw, live_slots=live))
+    assert any("banded_kernel" in nm for nm in names), names
+    assert not any("banded_tc_kernel" in nm for nm in names), names

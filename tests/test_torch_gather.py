@@ -1,6 +1,9 @@
 """PyTorch port, GIN/GAT slice ops: the plain versions of B6 (fused assign
-softmax) and B7 (block-sparse gather-sum) against the Pallas functions
-they replace (interpret mode on the CPU), the factored stage-1 operators'
+softmax) and B7 (block-sparse gather-sum; also on the cases its card
+kernel, a gather over the nonzeros, must keep: duplicate columns, an edge
+in a tile not listed, a tile listed twice, a masked slot) against the
+Pallas functions they replace (interpret mode on the CPU), the factored
+stage-1 operators'
 backward against ``jax.vjp``, the ELL gather ops, ``renorm_ell``, the SDDMM
 and segment ops, and the B6/B7 wrappers' CPU dispatch. The CUDA kernels
 are held against their plain versions on a card by tests/test_torch_cuda.py
@@ -151,6 +154,54 @@ def test_b7_gather_sum_matches_pallas(batch, monkeypatch, f, variant, dtype):
         np.testing.assert_allclose(
             _np(out), _np(tell.ell_gather_sum(_t(batch["nbr"]), _t(w), _t(x))),
             atol=B7_ATOL)
+
+
+def _b7_edge_case(case):
+    """(nbr, w, blk_cols, blk_mask, x) of a 4-row-tile batch with one of
+    the cases B7's function must keep: ``duplicate`` — two slots of a row
+    name one column; ``not_live`` — an edge whose column tile is not listed
+    for its row tile (it adds nothing); ``tile_twice`` — a column tile
+    listed in two live slots (its product adds twice); ``masked_slot`` — a
+    listed tile's slot masked off (its edges add nothing)."""
+    g = example_batch(batch=2, cap=512, seed=3)
+    rng = np.random.default_rng(11)
+    nbr, cols, mask = (g[k].copy() for k in ("nbr", "blk_cols", "blk_mask"))
+    w = (g["nbr_mask"] * rng.uniform(0.5, 1.5, nbr.shape)).astype(np.float32)
+    if case == "duplicate":
+        nbr[:, 10:20, 1] = nbr[:, 10:20, 0]
+        w[:, 10:20, :2] = (0.75, 0.625)
+    elif case == "not_live":
+        assert 3 not in cols[0, 0][mask[0, 0] > 0]
+        nbr[0, 5, 2], w[0, 5, 2] = 3 * 128 + 9, 1.25
+    elif case == "tile_twice":
+        assert not mask[:, 0, 2].any()
+        cols[:, 0, 2], mask[:, 0, 2] = cols[:, 0, 0], 1.0
+    else:
+        assert mask[:, 1, 1].all()
+        mask[:, 1, 1] = 0.0
+    x = rng.normal(size=nbr.shape[:2] + (24,)).astype(np.float32)
+    return nbr, w, cols, mask, x
+
+
+@pytest.mark.parametrize("case", ["duplicate", "not_live", "tile_twice",
+                                  "masked_slot"])
+@pytest.mark.parametrize("variant,dtype", [
+    ("resident", "float32"), ("resident", "bfloat16"), ("streamed", "float32"),
+])
+def test_b7_edge_cases_match_pallas(monkeypatch, case, variant, dtype):
+    """The plain version keeps bsr_gather_sum's semantics on the cases a
+    gather over the nonzeros must keep too (``_b7_edge_case``), against
+    both Pallas variants in f32 and the resident one in bf16."""
+    if variant == "streamed":
+        monkeypatch.setattr(bk, "_RESIDENT_LIMIT", 0)
+    *args, x = _b7_edge_case(case)
+    ref = bk.bsr_gather_sum(*[jnp.asarray(a) for a in args],
+                            jnp.asarray(x).astype(dtype))
+    out = tbsr.bsr_gather_sum_plain(*[_t(a) for a in args],
+                                    _t(x).to(getattr(torch, dtype)))
+    rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(_np(out), np.asarray(ref.astype(jnp.float32)),
+                               atol=B7_ATOL, rtol=rtol)
 
 
 def _factored_args(batch):
