@@ -5,14 +5,21 @@ patch-trained CGCNet parameters through the slide path
 (``parallel/mega_model.py``), optionally fine-tunes them on the slide, and
 grades a stream of slides with the host build of each slide pipelined
 behind the forward of the one before. Same flags and output as
-``cgcnet_tpu/cli/slide.py``. Runs on the CUDA device; ``--cpu`` runs one
-shard on the CPU with the kernels' plain versions (and the gather path:
-block tables are built for a card only).
+``cgcnet_tpu/cli/slide.py``. Runs on the CUDA device; ``--cpu`` runs on the
+CPU with the kernels' plain versions (and the gather path: block tables are
+built for a card only).
+
+``--shards D`` above 1 runs one process per shard under the launcher
+(``parallel/mesh.py``: gloo on the CPU and where ranks share a card, nccl
+where each rank owns one); rank 0 prints and writes ``--out``.
 
 Usage:
     python -m cgcnet_tpu_torch.cli.slide --synthetic --nuclei 100000 \
         --shards 1 model.compute_dtype=bfloat16
     python -m cgcnet_tpu_torch.cli.slide --proto slide.npz --ckpt model.pt
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m cgcnet_tpu_torch.cli.slide --cpu --synthetic --nuclei 20000 \
+        --shards 2
 """
 
 from __future__ import annotations
@@ -23,8 +30,7 @@ import time
 import numpy as np
 import torch
 
-from cgcnet_tpu_torch.cli.predict import select_device
-from cgcnet_tpu_torch.parallel.mega_graph import MULTI_SHARD
+from cgcnet_tpu_torch.parallel.mesh import GraphAxis, launched_axis, launcher
 
 
 def load_partial(model, path) -> tuple[list[str], list[str]]:
@@ -57,7 +63,8 @@ def main(argv=None) -> dict:
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--nuclei", type=int, default=100_000)
     p.add_argument("--shards", type=int, default=0,
-                   help="0 = every device; this package runs 1")
+                   help="0 = the launcher's world size (1 without one); "
+                        "one process per shard")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch versions of the kernels)")
     p.add_argument(
@@ -74,15 +81,22 @@ def main(argv=None) -> dict:
     p.add_argument("--out", help="write the (fine-tuned) checkpoint here")
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
-    device = select_device(args.cpu)
-    shards = args.shards or (
-        torch.cuda.device_count() if device.type == "cuda" else 1
-    )
-    if shards != 1:
-        raise NotImplementedError(MULTI_SHARD)
+    with launched_axis(args.cpu) as axis:
+        return _run(p, args, axis)
+
+
+def _run(p, args, axis: GraphAxis) -> dict:
+    shards = args.shards or axis.size
+    if shards != axis.size:
+        raise ValueError(
+            f"--shards {shards} runs one process per shard (this process is "
+            f"in a graph axis of {axis.size}): {launcher(shards)}")
+    device = axis.device
+    say = print if axis.rank == 0 else (lambda *a, **k: None)
 
     from cgcnet_tpu_torch.config import Config
     from cgcnet_tpu_torch.nn.model import CGCNet
+    from cgcnet_tpu_torch.parallel.mega_graph import broadcast_
     from cgcnet_tpu_torch.parallel.mega_model import mega_forward
     from cgcnet_tpu_torch.parallel.slide_setup import (
         SlideCaps,
@@ -106,7 +120,7 @@ def main(argv=None) -> dict:
             feats, coords, label = z["features"], z["coords"], int(z["label"])
 
     # ---- normalize / band-sort / pad / radius graph / partition (+tables)
-    build = build_slide_inputs(cfg, feats, coords, shards, device)
+    build = build_slide_inputs(cfg, feats, coords, shards, device, axis=axis)
     n, inputs = build.n, build.inputs
 
     mcfg = cfg.model.__class__(**{**cfg.model.__dict__,
@@ -114,7 +128,8 @@ def main(argv=None) -> dict:
     model = CGCNet(mcfg).to(device).eval()
     if args.ckpt:
         copied, _ = load_partial(model, args.ckpt)
-        print(f"loaded {len(copied)} tensors from {args.ckpt}")
+        say(f"loaded {len(copied)} tensors from {args.ckpt}")
+    broadcast_(model.state_dict().values(), axis)
 
     def fwd(inp):
         with torch.no_grad():
@@ -132,13 +147,13 @@ def main(argv=None) -> dict:
 
     pred = int(np.argmax(logits))
     halo = int(build.part.req_mask.sum())
-    print(f"slide: {n} nuclei, {shards} shards, halo rows {halo} "
-          f"({100 * halo / max(n, 1):.2f}%)")
-    print(f"timing: graph {build.t_graph_s * 1e3:.0f} ms, "
-          f"partition {build.t_part_s * 1e3:.0f} ms, "
-          f"forward {t_fwd * 1e3:.0f} ms (first call {t_fwd_c:.1f} s)")
-    print(f"logits {logits}  predicted grade {pred + 1}"
-          + (f" (true {label + 1})" if label is not None else ""))
+    say(f"slide: {n} nuclei, {shards} shards, halo rows {halo} "
+        f"({100 * halo / max(n, 1):.2f}%)")
+    say(f"timing: graph {build.t_graph_s * 1e3:.0f} ms, "
+        f"partition {build.t_part_s * 1e3:.0f} ms, "
+        f"forward {t_fwd * 1e3:.0f} ms (first call {t_fwd_c:.1f} s)")
+    say(f"logits {logits}  predicted grade {pred + 1}"
+        + (f" (true {label + 1})" if label is not None else ""))
     result = {"logits": logits, "pred": pred, "n": n, "cap": build.cap,
               "bsr": build.bsr, "t_graph_s": build.t_graph_s,
               "t_part_s": build.t_part_s, "t_fwd_s": t_fwd}
@@ -153,17 +168,17 @@ def main(argv=None) -> dict:
             epochs=args.train_epochs, remat=cfg.mesh.remat,
             remat_stage1=cfg.mesh.remat_stage1,
         )
-        print(f"fine-tune: {args.train_epochs} epochs on this slide, "
-              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        say(f"fine-tune: {args.train_epochs} epochs on this slide, "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
         logits2 = fwd(inputs)
-        print(f"post-finetune logits {logits2} predicted grade "
-              f"{int(np.argmax(logits2)) + 1}")
+        say(f"post-finetune logits {logits2} predicted grade "
+            f"{int(np.argmax(logits2)) + 1}")
         result.update(losses=losses, logits_finetuned=logits2)
-        if args.out:
+        if args.out and axis.rank == 0:
             save_checkpoint(args.out, model.state_dict(), cfg,
                             {"slide_epochs": args.train_epochs,
                              "losses": losses})
-            print(f"saved fine-tuned weights to {args.out}")
+            say(f"saved fine-tuned weights to {args.out}")
 
     if args.slides > 1:
         # ---- streaming: the host build pipelined behind the forward ----
@@ -182,7 +197,8 @@ def main(argv=None) -> dict:
         def build_one(i):
             nonlocal caps
             f, c = synthetic_slide(args.nuclei, seed=1000 + i)
-            b = build_slide_inputs(cfg, f, c, shards, device, caps=caps)
+            b = build_slide_inputs(cfg, f, c, shards, device, caps=caps,
+                                   axis=axis)
             caps = b.caps or caps
             return b
 
@@ -205,9 +221,9 @@ def main(argv=None) -> dict:
                 seen.add(shapes(b.inputs))
                 preds.append(int(np.argmax(fwd(b.inputs))))
         wall = time.perf_counter() - t0
-        print(f"stream: {args.slides} slides in {wall:.2f} s "
-              f"({args.slides / wall:.1f} slides/s, pipelined host build), "
-              f"table shape sets: {len(seen)}, preds {preds}")
+        say(f"stream: {args.slides} slides in {wall:.2f} s "
+            f"({args.slides / wall:.1f} slides/s, pipelined host build), "
+            f"table shape sets: {len(seen)}, preds {preds}")
         result.update(stream_preds=preds, slides_per_s=args.slides / wall,
                       shape_sets=len(seen), stream_wall_s=wall)
     return result

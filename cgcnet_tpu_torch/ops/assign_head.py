@@ -57,6 +57,7 @@ import torch
 
 from cgcnet_tpu_torch.ops import _cuda
 from cgcnet_tpu_torch.parallel.mega_graph import psum
+from cgcnet_tpu_torch.parallel.mesh import ONE
 
 TILE = 128
 # the bf16 product's tiling (csrc/assign_head.cu gemm_tc_kernel): K in
@@ -584,7 +585,8 @@ def _alg_grads(saved, n, eps, dk3f, dconst, dk3f_g, dconst_g):
     row-sharded dp) come from the GLOBAL (psum'd) dk3f/dconst, the
     parameters' cotangents from this shard's own contributions (the
     parameters are replicated, and their gradients are summed across
-    shards by whoever reduces them). Returns (dssum, dssq, dk3, dlin_bias,
+    shards after the backward: ``parallel/mega_train.reduce_grads``).
+    Returns (dssum, dssq, dk3, dlin_bias,
     dbn_scale, dbn_bias)."""
     leaves = [t.detach().requires_grad_(True) for t in saved]
     with torch.enable_grad():
@@ -602,16 +604,16 @@ class AssignTailTrainPsum(torch.autograd.Function):
     """``AssignTailTrain`` with the BN statistics summed over the graph axis
     between B3 and B4 (the slide path's SyncBatchNorm) and S emitted
     ``c_out`` columns wide (exact-zero pad columns, so B8 reads a
-    lane-aligned S). ``n`` is the global real-row count. Returns (S, batch
-    mean, batch var). The backward (``_atfp_bwd``) runs the N-sized chains
-    at the padded width against zero-padded kernels and trims the [C]-sized
-    gradients."""
+    lane-aligned S). ``n`` is the global real-row count, ``axis`` the
+    graph axis. Returns (S, batch mean, batch var). The backward
+    (``_atfp_bwd``) runs the N-sized chains at the padded width against
+    zero-padded kernels and trims the [C]-sized gradients."""
 
     @staticmethod
     def forward(ctx, x12, p, k12, k3, lin_bias, bn_scale, bn_bias, n_nodes,
-                n, eps, c_out):
+                n, eps, c_out, axis):
         ssum, ssq = l2relu_stats(p, n_nodes)
-        ssum, ssq = psum(ssum), psum(ssq)
+        ssum, ssq = psum(ssum, axis), psum(ssq, axis)
         k3f, const, mean, var = tail_algebra(
             ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps
         )
@@ -619,7 +621,7 @@ class AssignTailTrainPsum(torch.autograd.Function):
                                        c_out)
         ctx.save_for_backward(x12, p, k12, k3f, s, n_nodes, ssum, ssq, k3,
                               lin_bias, bn_scale, bn_bias, n)
-        ctx.eps = eps
+        ctx.eps, ctx.axis = eps, axis
         ctx.mark_non_differentiable(mean, var)
         return s, mean, var
 
@@ -642,18 +644,18 @@ class AssignTailTrainPsum(torch.autograd.Function):
         dk3f = torch.einsum("bnc,bnd->cd", h.float(), dl.float())[:, :c]
         dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
             (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
-            dk3f, dconst, psum(dk3f), psum(dconst),
+            dk3f, dconst, psum(dk3f, ctx.axis), psum(dconst, ctx.axis),
         )
         dp = assign_tail_bwd(p, dh, dssum, dssq, n_nodes)
         return (dx12, dp, dk12, dk3, dlin_bias, dbn_scale, dbn_bias,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def assign_tail_train_psum(x12, p, k12, k3, lin_bias, bn_scale, bn_bias,
-                           n_nodes, n, eps=1e-5, c_out=None):
+                           n_nodes, n, eps=1e-5, c_out=None, axis=ONE):
     """(S [B, N, c_out or C], mean, var) — :class:`AssignTailTrainPsum`."""
     return AssignTailTrainPsum.apply(x12, p, k12, k3, lin_bias, bn_scale,
-                                     bn_bias, n_nodes, n, eps, c_out)
+                                     bn_bias, n_nodes, n, eps, c_out, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -921,9 +923,9 @@ class AssignTailTrainChunkedLin(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x12, x3, kc3, b3, k12, k3, lin_bias, bn_scale, bn_bias,
-                n_nodes, n, eps, chunk_rows):
+                n_nodes, n, eps, chunk_rows, axis):
         ssum, ssq = l2relu_stats_lin(x3, kc3, b3, n_nodes)
-        ssum, ssq = psum(ssum), psum(ssq)
+        ssum, ssq = psum(ssum, axis), psum(ssq, axis)
         k3f, const, mean, var = tail_algebra(
             ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps
         )
@@ -931,7 +933,7 @@ class AssignTailTrainChunkedLin(torch.autograd.Function):
                                         n_nodes)
         ctx.save_for_backward(x12, x3, kc3, b3, k12, k3f, const, n_nodes,
                               ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n)
-        ctx.eps, ctx.chunk_rows = eps, chunk_rows
+        ctx.eps, ctx.chunk_rows, ctx.axis = eps, chunk_rows, axis
         ctx.mark_non_differentiable(mean, var)
         return s, mean, var
 
@@ -971,7 +973,7 @@ class AssignTailTrainChunkedLin(torch.autograd.Function):
             dconst += torch.sum(dl32, dim=(0, 1))
         dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
             (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
-            dk3f, dconst, psum(dk3f), psum(dconst),
+            dk3f, dconst, psum(dk3f, ctx.axis), psum(dconst, ctx.axis),
         )
 
         # ---- phase B: the row gradients; dp exists per chunk only ----
@@ -989,14 +991,14 @@ class AssignTailTrainChunkedLin(torch.autograd.Function):
             db3 += torch.sum(dpc.float(), dim=(0, 1))
         return (dx12, dx3, dkc3.to(kc3.dtype), db3.to(b3.dtype),
                 dk12.to(k12.dtype), dk3, dlin_bias, dbn_scale, dbn_bias,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def assign_tail_train_chunked_lin(x12, x3, kc3, b3, k12, k3, lin_bias,
                                   bn_scale, bn_bias, n_nodes, n, eps=1e-5,
-                                  chunk_rows=65536):
+                                  chunk_rows=65536, axis=ONE):
     """(S [B, N, C], mean, var) — :class:`AssignTailTrainChunkedLin`."""
     return AssignTailTrainChunkedLin.apply(
         x12, x3, kc3, b3, k12, k3, lin_bias, bn_scale, bn_bias, n_nodes, n,
-        eps, chunk_rows,
+        eps, chunk_rows, axis,
     )

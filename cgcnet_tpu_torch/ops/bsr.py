@@ -691,7 +691,12 @@ def bsr_matmul_banded(
         x.device.index, _cuda.stream_of(x),
     )
     bsr_matmul_banded.launches += 1
+    if halo_win is not None and halo_win.shape[-1]:
+        # the TPU's halo-window variant (bsr_kernel.py:1097): the same
+        # kernel, counted apart as well
+        bsr_matmul_banded.halo_window_launches += 1
     return (out, tail) if split else out
 
 
 bsr_matmul_banded.launches = 0
+bsr_matmul_banded.halo_window_launches = 0

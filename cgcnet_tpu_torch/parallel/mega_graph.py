@@ -7,13 +7,13 @@ over [its rows ++ the halo rows its neighbours live on]. The host builds
 the static tables (:func:`partition_graph`, :func:`build_bsr_tables`); the
 device moves halo rows between shards and sums statistics across them
 (:func:`halo_exchange`, :func:`halo_exchange_vjp`, :func:`psum`,
-:func:`all_gather`).
-
-This package runs one shard: every collective below is the identity of a
-one-member group (the halo exchange still forms the send buffer
-``x[req_idx] * req_mask`` exactly as the JAX package does). A graph axis
-above 1 raises ``NotImplementedError``; its ``torch.distributed`` forms are
-the multi-shard item of ``ROADMAP.md``.
+:func:`all_gather`), one process per shard over the ``torch.distributed``
+group of a :class:`~cgcnet_tpu_torch.parallel.mesh.GraphAxis`; for one
+shard each is the identity of a one-member group (the halo exchange still
+forms the send buffer ``x[req_idx] * req_mask``). Tables built for D shards
+run only in an axis of D ranks. :func:`sharded_gather_sum` and its
+``_overlap`` and ``_allgather`` forms are the JAX package's reference
+aggregations over the same collectives.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cgcnet_tpu_torch.ops.bsr import (
     G_BAND,
@@ -31,11 +32,8 @@ from cgcnet_tpu_torch.ops.bsr import (
     band_window_table_halo,
     bsr_block_meta,
 )
-
-MULTI_SHARD = (
-    "more than one shard needs the torch.distributed collectives of "
-    "ROADMAP.md queue 1, item 7 (multi-shard whole-slide path)"
-)
+from cgcnet_tpu_torch.ops.ell import ell_gather_sum
+from cgcnet_tpu_torch.parallel.mesh import ONE, GraphAxis
 
 
 @dataclasses.dataclass
@@ -278,25 +276,109 @@ def build_bsr_tables(
 
 
 # ---------------------------------------------------------------------------
-# collectives of the graph axis (one shard)
+# collectives of the graph axis
 # ---------------------------------------------------------------------------
+#
+# Each collective moves bits only: the tensor travels as a uint8 view (a
+# dtype every backend carries, bf16 included), and a sum over the axis is
+# an all-gather followed by a sum of the D parts in rank order at the
+# tensor's dtype. So a sum is exact to the dtype's rounding, fixed in order,
+# and bit-identical on every rank, which keeps the replicated stages (and
+# the parameters a training step writes) equal on every rank. On gloo with
+# ranks on a card, every collective stages its bytes through pinned host
+# memory (``GraphAxis.staged``); nothing switches path on a caught error.
 
-def _one_shard(shards: int) -> None:
-    if shards != 1:
-        raise NotImplementedError(MULTI_SHARD)
+def _host(flat: torch.Tensor, axis: GraphAxis) -> torch.Tensor:
+    if not axis.staged:
+        return flat
+    buf = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    return buf.copy_(flat)
+
+
+def _gather_raw(x: torch.Tensor, axis: GraphAxis) -> torch.Tensor:
+    """[D, *x.shape]: every rank's x, in rank order."""
+    flat = _host(x.detach().contiguous().reshape(-1).view(torch.uint8), axis)
+    parts = [torch.empty_like(flat) for _ in range(axis.size)]
+    dist.all_gather(parts, flat, group=axis.group)
+    out = torch.stack(parts).to(x.device)
+    return out.view(x.dtype).reshape(axis.size, *x.shape)
+
+
+def _all_to_all_raw(x: torch.Tensor, axis: GraphAxis) -> torch.Tensor:
+    """x [D, ...] -> [D, ...]: slot e of the result is slot r (this rank)
+    of rank e's x."""
+    flat = _host(x.detach().contiguous().reshape(axis.size, -1)
+                 .view(torch.uint8), axis)
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat, group=axis.group)
+    return out.to(x.device).view(x.dtype).reshape(x.shape)
+
+
+def _sum_parts(parts: torch.Tensor) -> torch.Tensor:
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+class _PSum(torch.autograd.Function):
+    """Sum over the axis; its VJP is the sum of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _sum_parts(_gather_raw(x, axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_parts(_gather_raw(g, ctx.axis)), None
+
+
+class _AllGather(torch.autograd.Function):
+    """[D, ...] stack of every rank's x; its VJP gives each rank the sum
+    over ranks of its own slice of the cotangent (a reduce-scatter, as an
+    all-to-all and a sum in rank order)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _gather_raw(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_parts(_all_to_all_raw(g, ctx.axis)), None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The halo exchange's all-to-all over [D, P, F]; an involution, so its
+    VJP is the same all-to-all (the reverse exchange)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _all_to_all_raw(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_raw(g, ctx.axis), None
 
 
 def halo_exchange(
     x_local: torch.Tensor,   # [Ns, F]
     req_idx: torch.Tensor,   # i32[D, P] rows this shard sends to each peer
     req_mask: torch.Tensor,  # f32[D, P]
+    axis: GraphAxis = ONE,
 ) -> torch.Tensor:
-    """[D*P, F] halo rows: this shard's send buffer x[req_idx] * req_mask
-    (the mask multiplied at x's dtype), then the all-to-all over the graph
-    axis — the identity for one shard. Differentiable (autograd's backward
-    is :func:`halo_exchange_vjp`)."""
-    _one_shard(req_idx.shape[0])
+    """[D*P, F] halo rows of this shard, ordered by source shard: the send
+    buffer x[req_idx] * req_mask (the mask multiplied at x's dtype: an f32
+    mask would promote bf16 halo rows, and with them every stage-1
+    aggregation, to f32), then the all-to-all over the graph axis — the
+    identity for one shard. Differentiable (autograd's backward is
+    :func:`halo_exchange_vjp`)."""
+    axis.check(req_idx.shape[0])
     send = x_local[req_idx.long()] * req_mask[..., None].to(x_local.dtype)
+    if axis.size > 1:
+        send = _AllToAll.apply(send, axis)
     return send.reshape(-1, x_local.shape[-1])
 
 
@@ -305,26 +387,86 @@ def halo_exchange_vjp(
     req_idx: torch.Tensor,
     req_mask: torch.Tensor,
     ns: int,
+    axis: GraphAxis = ONE,
 ) -> torch.Tensor:
     """[Ns, F] cotangent of x_local: the reverse all-to-all (identity for
     one shard), then the masked rows scatter-added to the rows they came
     from."""
-    _one_shard(req_idx.shape[0])
-    g = d_halo.reshape(*req_idx.shape, -1) * req_mask[..., None].to(d_halo.dtype)
+    axis.check(req_idx.shape[0])
+    g = d_halo.reshape(*req_idx.shape, -1)
+    if axis.size > 1:
+        g = _all_to_all_raw(g, axis)
+    g = g * req_mask[..., None].to(d_halo.dtype)
     out = d_halo.new_zeros((ns, d_halo.shape[-1]))
     return out.index_add_(0, req_idx.reshape(-1).long(),
                           g.reshape(-1, d_halo.shape[-1]))
 
 
-def psum(x: torch.Tensor, shards: int = 1) -> torch.Tensor:
+def psum(x: torch.Tensor, axis: GraphAxis = ONE) -> torch.Tensor:
     """Sum over the graph axis (SyncBatchNorm statistics, the DiffPool
-    contraction): the identity for one shard."""
-    _one_shard(shards)
-    return x
+    contraction): ``x`` itself for one shard. Differentiable."""
+    if axis.size == 1:
+        return x
+    return _PSum.apply(x, axis)
 
 
-def all_gather(x: torch.Tensor, shards: int = 1) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis: GraphAxis = ONE) -> torch.Tensor:
     """[D, ...] stack of every shard's ``x`` (the readout's max): ``x[None]``
-    for one shard."""
-    _one_shard(shards)
-    return x[None]
+    for one shard. Differentiable."""
+    if axis.size == 1:
+        return x[None]
+    return _AllGather.apply(x, axis)
+
+
+def broadcast_(tensors, axis: GraphAxis = ONE) -> None:
+    """Overwrite each tensor with rank 0's (a model's weights made the same
+    on every rank); nothing for one shard."""
+    if axis.size == 1:
+        return
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(_gather_raw(t, axis)[0])
+
+
+# ---------------------------------------------------------------------------
+# reference aggregations over the collectives (one shard's tensors)
+# ---------------------------------------------------------------------------
+
+def sharded_gather_sum(
+    x: torch.Tensor,          # [Ns, F] this shard's rows
+    nbr_remap: torch.Tensor,  # i32[Ns, K] in [local ++ halo] space
+    nbr_mask: torch.Tensor,   # f32[Ns, K]; unused (w folds the mask): the
+    w: torch.Tensor,          #   signature of the _overlap form
+    req_idx: torch.Tensor,    # i32[D, P]
+    req_mask: torch.Tensor,   # f32[D, P]
+    axis: GraphAxis = ONE,
+) -> torch.Tensor:
+    """This shard's rows of A @ x over the halo exchange."""
+    halo = halo_exchange(x, req_idx, req_mask, axis)
+    xx = torch.cat([x, halo], dim=0)
+    return ell_gather_sum(nbr_remap[None], w[None], xx[None])[0]
+
+
+def sharded_gather_sum_overlap(x, nbr_remap, nbr_mask, w, req_idx, req_mask,
+                               axis: GraphAxis = ONE) -> torch.Tensor:
+    """:func:`sharded_gather_sum` split into interior rows (every real slot
+    local: no dependency on the exchange) and boundary rows."""
+    ns = x.shape[0]
+    slot_local = torch.where(nbr_mask > 0, nbr_remap,
+                             torch.zeros_like(nbr_remap)) < ns
+    interior = torch.all(slot_local, dim=-1)
+    halo = halo_exchange(x, req_idx, req_mask, axis)
+    out_int = ell_gather_sum(torch.clamp_max(nbr_remap, ns - 1)[None],
+                             (w * interior[:, None])[None], x[None])[0]
+    xx = torch.cat([x, halo], dim=0)
+    out_bnd = ell_gather_sum(nbr_remap[None], (w * (~interior)[:, None])[None],
+                             xx[None])[0]
+    return out_int + out_bnd
+
+
+def sharded_gather_sum_allgather(x, nbr, w,
+                                 axis: GraphAxis = ONE) -> torch.Tensor:
+    """The oracle: every shard's rows gathered, then this shard's rows of
+    A @ x over the global neighbour ids ``nbr`` [Ns, K]."""
+    x_full = all_gather(x, axis).reshape(-1, x.shape[-1])
+    return ell_gather_sum(nbr[None], w[None], x_full[None])[0]

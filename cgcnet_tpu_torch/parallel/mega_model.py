@@ -25,8 +25,9 @@ mutating the module inside it, so the segments that ``remat`` /
 ``remat_stage1`` recompute under ``torch.utils.checkpoint`` recompute
 exactly; ``parallel/mega_train.py`` writes them back after the step.
 
-This package runs one shard (``--shards 1``): the collectives are those of
-a one-member group.
+Over D shards each process runs one shard (``MegaInputs.axis``, its rows
+of the slide and its tables) and the collectives run over the group; the
+pooled stages and the head compute the same values on every rank.
 """
 
 from __future__ import annotations
@@ -58,7 +59,6 @@ from cgcnet_tpu_torch.ops.ell import (
     renorm_dense,
 )
 from cgcnet_tpu_torch.parallel.mega_graph import (
-    MULTI_SHARD,
     ShardedBsrTables,
     ShardedGraphPartition,
     all_gather,
@@ -66,14 +66,16 @@ from cgcnet_tpu_torch.parallel.mega_graph import (
     halo_exchange_vjp,
     psum,
 )
+from cgcnet_tpu_torch.parallel.mesh import ONE, GraphAxis
 
 
 @dataclasses.dataclass
 class MegaInputs:
-    """Device-ready slide graph of one shard. The optional block fields
-    (``parallel/mega_graph.build_bsr_tables``) switch stage 1 to the block
-    kernels; ``vals``/``vals_t`` are the int8 blocks of the binary local
-    operator and its transpose, built once per slide."""
+    """Device-ready slide graph of one shard: shard ``axis.rank`` of
+    ``axis.size``, whose collectives the forward runs over. The optional
+    block fields (``parallel/mega_graph.build_bsr_tables``) switch stage 1
+    to the block kernels; ``vals``/``vals_t`` are the int8 blocks of the
+    binary local operator and its transpose, built once per slide."""
 
     x: torch.Tensor            # f32[Ns, F]
     nbr_remap: torch.Tensor    # i32[Ns, K]
@@ -94,6 +96,7 @@ class MegaInputs:
     vals_t: Optional[torch.Tensor] = None      # i8[1, RC, MT, T, T]
     slots: Optional[torch.Tensor] = None       # i32[R] live slot counts
     slots_t: Optional[torch.Tensor] = None     # i32[RC]
+    axis: GraphAxis = ONE
 
     @property
     def device(self) -> torch.device:
@@ -106,43 +109,49 @@ def prepare_mega_inputs(
     device,
     n_real: Optional[int] = None,
     bsr: Optional[ShardedBsrTables] = None,
+    axis: GraphAxis = ONE,
 ) -> MegaInputs:
-    """Host tables -> :class:`MegaInputs` on ``device``; with ``bsr`` the
-    int8 blocks of the local operator (off-diagonal slots) and of its
-    transpose are built here, once per slide (two B1 launches on a card).
-    The transpose blocks cover the local rows only when the tables are a
-    hybrid transpose."""
-    if part.num_shards != 1:
-        raise NotImplementedError(MULTI_SHARD)
+    """Host tables of the whole slide (``x`` [N, F], ``n_real`` real rows
+    first) -> shard ``axis.rank``'s :class:`MegaInputs` on ``device``: its
+    rows, its tables, its send tables [D, P]. ValueError unless the tables
+    were built for ``axis.size`` shards. With ``bsr`` the int8 blocks of
+    the local operator (off-diagonal slots) and of its transpose are built
+    here, once per slide (two B1 launches on a card); the transpose blocks
+    cover the local rows only when the tables are a hybrid transpose."""
+    axis.check(part.num_shards)
+    r = axis.rank
     device = torch.device(device)
     put = lambda a, dt=None: torch.as_tensor(np.ascontiguousarray(a),
                                              dtype=dt, device=device)
-    ns, k = part.nbr_remap.shape[1], part.nbr_remap.shape[2]
+    ns = part.nbr_remap.shape[1]
+    total = part.num_shards * ns
+    # the padding sits at the global end: each shard's real rows a prefix
     valid = np.zeros(ns, np.float32)
-    valid[: (n_real if n_real is not None else ns)] = 1.0
+    valid[: min(max((n_real if n_real is not None else total) - r * ns, 0),
+                ns)] = 1.0
     inp = MegaInputs(
-        x=put(x, torch.float32),
-        nbr_remap=put(part.nbr_remap[0], torch.int32),
-        nbr_mask=put(part.nbr_mask[0], torch.float32),
-        req_idx=put(part.req_idx.reshape(-1, part.halo_capacity), torch.int32),
-        req_mask=put(part.req_mask.reshape(-1, part.halo_capacity),
-                     torch.float32),
+        x=put(x[r * ns:(r + 1) * ns], torch.float32),
+        nbr_remap=put(part.nbr_remap[r], torch.int32),
+        nbr_mask=put(part.nbr_mask[r], torch.float32),
+        req_idx=put(part.req_idx[r], torch.int32),
+        req_mask=put(part.req_mask[r], torch.float32),
         valid=put(valid),
+        axis=axis,
     )
     if bsr is None:
         return inp
-    inp.blk_cols = put(bsr.blk_cols[0], torch.int32)
-    inp.blk_mask = put(bsr.blk_mask[0], torch.float32)
-    inp.nbr_t = put(bsr.nbr_t[0], torch.int32)
-    inp.mask_t = put(bsr.mask_t[0], torch.float32)
-    inp.blk_cols_t = put(bsr.blk_cols_t[0], torch.int32)
-    inp.blk_mask_t = put(bsr.blk_mask_t[0], torch.float32)
+    inp.blk_cols = put(bsr.blk_cols[r], torch.int32)
+    inp.blk_mask = put(bsr.blk_mask[r], torch.float32)
+    inp.nbr_t = put(bsr.nbr_t[r], torch.int32)
+    inp.mask_t = put(bsr.mask_t[r], torch.float32)
+    inp.blk_cols_t = put(bsr.blk_cols_t[r], torch.int32)
+    inp.blk_mask_t = put(bsr.blk_mask_t[r], torch.float32)
     if bsr.win_base is not None:
-        inp.win_base = put(bsr.win_base, torch.int32)
+        inp.win_base = put(bsr.win_base[r:r + 1], torch.int32)
     if bsr.win_base_t is not None:
-        inp.win_base_t = put(bsr.win_base_t, torch.int32)
+        inp.win_base_t = put(bsr.win_base_t[r:r + 1], torch.int32)
     if bsr.win_halo is not None:
-        inp.win_halo = put(bsr.win_halo, torch.int32)
+        inp.win_halo = put(bsr.win_halo[r:r + 1], torch.int32)
     build_vals(inp)
     return inp
 
@@ -234,9 +243,9 @@ class PoolAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tabs, scale, self_w, pool_ratio, s, pembed):
         (vals, blk_cols, win, vals_t, blk_cols_t, win_t, win_halo, nbr_t_h,
-         mask_t_h, slots, slots_t, req_idx, req_mask, nc) = tabs
+         mask_t_h, slots, slots_t, req_idx, req_mask, nc, axis) = tabs
         ns = s.shape[0]
-        halo = _pad_halo(halo_exchange(s, req_idx, req_mask), nc, ns)
+        halo = _pad_halo(halo_exchange(s, req_idx, req_mask, axis), nc, ns)
         agg = bsr_local_matmul(vals, blk_cols, win, vals_t, blk_cols_t,
                                win_t, s, halo, win_halo, nbr_t_h, mask_t_h,
                                slots, slots_t)
@@ -248,7 +257,7 @@ class PoolAggregate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_x, ct_adj):
         (_, _, _, vals_t, blk_cols_t, win_t, _, nbr_t_h, mask_t_h, _, slots_t,
-         req_idx, req_mask, _) = ctx.tabs
+         req_idx, req_mask, _, axis) = ctx.tabs
         scale, pool_ratio, s, pembed, a_s = ctx.saved_tensors
         dt = s.dtype
         ctx_, cta = ct_x.to(dt), ct_adj.to(dt)
@@ -272,7 +281,7 @@ class PoolAggregate(torch.autograd.Function):
         if d_halo is not None and d_halo.shape[0]:
             ds = ds + halo_exchange_vjp(
                 d_halo[: req_idx.numel()].to(dt), req_idx, req_mask,
-                s.shape[0],
+                s.shape[0], axis,
             )
         return None, None, None, None, ds, d_pembed
 
@@ -281,7 +290,8 @@ class PoolAggregate(torch.autograd.Function):
 # functional layers over the CGCNet module
 # ---------------------------------------------------------------------------
 
-def _bn_moments(stats, h32, valid, train: bool, replicated: bool = False):
+def _bn_moments(stats, h32, valid, train: bool, axis: GraphAxis,
+                replicated: bool = False):
     """(mean, var, upd) of BatchNorm over the real rows of the whole graph
     (statistics summed over the graph axis); ``upd`` is the running update
     (momentum 0.1, unbiased variance) in training. ``replicated``: the
@@ -290,10 +300,10 @@ def _bn_moments(stats, h32, valid, train: bool, replicated: bool = False):
     upd = None
     if train:
         m = valid[:, None].float()
-        cnt = psum(torch.sum(m))
-        mean = psum(torch.sum(h32 * m, dim=0)) / cnt
-        var = psum(torch.sum((h32 - mean) ** 2 * m, dim=0)) / cnt
-        true_cnt = (cnt / psum(torch.ones((), device=h32.device))
+        cnt = psum(torch.sum(m), axis)
+        mean = psum(torch.sum(h32 * m, dim=0), axis) / cnt
+        var = psum(torch.sum((h32 - mean) ** 2 * m, dim=0), axis) / cnt
+        true_cnt = (cnt / psum(torch.ones((), device=h32.device), axis)
                     if replicated else cnt)
         unbiased = var * true_cnt / torch.clamp_min(true_cnt - 1.0, 1.0)
         old_mean = stats["mean"] if stats else torch.zeros_like(mean)
@@ -305,10 +315,11 @@ def _bn_moments(stats, h32, valid, train: bool, replicated: bool = False):
     return mean, var, upd
 
 
-def _bn(bn, stats, h, valid, train: bool, replicated: bool = False):
+def _bn(bn, stats, h, valid, train: bool, axis: GraphAxis,
+        replicated: bool = False):
     """BatchNorm in f32 over the real rows of the whole graph."""
     h32 = h.float()
-    mean, var, upd = _bn_moments(stats, h32, valid, train, replicated)
+    mean, var, upd = _bn_moments(stats, h32, valid, train, axis, replicated)
     out = (h32 - mean) * torch.rsqrt(var + 1e-5) * bn.weight + bn.bias
     return out.to(h.dtype), upd
 
@@ -407,7 +418,8 @@ def _paired_layers12(model, name_e, name_p, x, agg, valid, cfg, train,
         h = act(h)
         st_e, st_p = _stats_of(model, name_e, i), _stats_of(model, name_p, i)
         st = {key: torch.cat([st_e[key], st_p[key]]) for key in ("mean", "var")}
-        mean, var, upd = _bn_moments(st, h.float(), valid, train, replicated)
+        mean, var, upd = _bn_moments(st, h.float(), valid, train, agg.axis,
+                                     replicated)
         scale = torch.cat([be.bn(i).weight, bp.bn(i).weight])
         bias = torch.cat([be.bn(i).bias, bp.bn(i).bias])
         out = ((h.float() - mean) * torch.rsqrt(var + 1e-5) * scale
@@ -457,7 +469,7 @@ def _stage1_block(model, name, x, agg, valid, cfg: ModelConfig, train,
         out = act(out)
         if cfg.bn and not (fold3 and i == 3):
             out, upd = _bn(blk.bn(i), _stats_of(model, name, i), out, valid,
-                           train, replicated)
+                           train, agg.axis, replicated)
             if upd is not None and stats_out is not None:
                 stats_out.setdefault(name, {})[f"bn{i}"] = upd
         h = out
@@ -466,7 +478,7 @@ def _stage1_block(model, name, x, agg, valid, cfg: ModelConfig, train,
         h3a = outs[2]
         dt = h3a.dtype
         mean, var, upd = _bn_moments(_stats_of(model, name, 3), h3a.float(),
-                                     valid, train, replicated)
+                                     valid, train, agg.axis, replicated)
         if upd is not None and stats_out is not None:
             stats_out.setdefault(name, {})["bn3"] = upd
         bn3 = blk.bn3
@@ -503,6 +515,7 @@ class ShardedAdj:
     def __init__(self, inputs: MegaInputs, cfg: ModelConfig, overlap=False,
                  dtype=torch.float32):
         self.inp = inputs
+        self.axis = inputs.axis
         self.overlap = overlap
         row = torch.arange(inputs.nbr_remap.shape[0], device=inputs.device)
         off32 = inputs.nbr_mask * (
@@ -535,7 +548,8 @@ class ShardedAdj:
     def concat_halo(self, h):
         """[Ns, F] -> [Ns + halo, F], the index space of ``nbr_remap``."""
         return torch.cat(
-            [h, halo_exchange(h, self.inp.req_idx, self.inp.req_mask)], 0
+            [h, halo_exchange(h, self.inp.req_idx, self.inp.req_mask,
+                              self.axis)], 0
         )
 
     def _tables(self):
@@ -558,7 +572,8 @@ class ShardedAdj:
     def __call__(self, h):
         inp = self.inp
         if self.bsr:
-            halo = _pad_halo(halo_exchange(h, inp.req_idx, inp.req_mask),
+            halo = _pad_halo(halo_exchange(h, inp.req_idx, inp.req_mask,
+                                           self.axis),
                              inp.nbr_t.shape[0], h.shape[0])
             tabs = self._tables()
             agg = bsr_local_matmul(*tabs[:6], h, halo, *tabs[6:])
@@ -593,14 +608,16 @@ class ShardedAdj:
         if not self.bsr or self.inp.win_base_t is None:
             return None
         return (*self._tables(), self.inp.req_idx, self.inp.req_mask,
-                self.inp.nbr_t.shape[0])
+                self.inp.nbr_t.shape[0], self.axis)
 
 
 class _DenseAgg:
-    """A @ h over the dense pooled adjacency of stages 2-3."""
+    """A @ h over the dense pooled adjacency of stages 2-3 (the same on
+    every shard; their BatchNorm sums over ``axis`` all the same)."""
 
-    def __init__(self, aa):
+    def __init__(self, aa, axis: GraphAxis):
         self.dense_adj = aa
+        self.axis = axis
 
     def __call__(self, h):
         return self.dense_adj @ h
@@ -639,6 +656,7 @@ def mega_forward(
     x = inputs.x.to(dtype)
     valid = inputs.valid.to(dtype)
     adj = ShardedAdj(inputs, cfg, overlap=halo_overlap, dtype=dtype)
+    axis = inputs.axis
     neg = torch.finfo(dtype).min
     stats_out: dict = {}
     ckpt = lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)
@@ -672,7 +690,7 @@ def mega_forward(
         embed = _jk(model.jk1, embed) * valid[:, None]
     local_max = torch.amax(
         torch.where(valid[:, None] > 0, embed, torch.full_like(embed, neg)), 0)
-    read1 = torch.amax(all_gather(local_max), 0)
+    read1 = torch.amax(all_gather(local_max, axis), 0)
 
     fused_tail = (
         paired and cfg.fold_assign_tail and cfg.activation == "relu"
@@ -701,7 +719,7 @@ def mega_forward(
                         else k.new_zeros(k.shape[1]))
             bn3 = pool.bn3
             if train:
-                n_glob = psum(valid.float().sum())
+                n_glob = psum(valid.float().sum(), axis)
                 if ch:
                     gl = pool.gcn3.lin
                     b3 = (gl.bias if gl.bias is not None
@@ -709,7 +727,7 @@ def mega_forward(
                     s, mean, var = ah.assign_tail_train_chunked_lin(
                         x12[None], x3[None], gl.kernel(), b3, k12, k3,
                         lin_bias, bn3.weight, bn3.bias, n_nodes, n_glob, 1e-5,
-                        ch,
+                        ch, axis,
                     )
                 else:
                     # S lane-padded when B8 takes the A @ S leg: its pad
@@ -722,7 +740,7 @@ def mega_forward(
                     co = c_pad if (band_on and c_pad != d1c) else None
                     s, mean, var = ah.assign_tail_train_psum(
                         x12[None], p_raw[None], k12, k3, lin_bias,
-                        bn3.weight, bn3.bias, n_nodes, n_glob, 1e-5, co,
+                        bn3.weight, bn3.bias, n_nodes, n_glob, 1e-5, co, axis,
                     )
                 unbiased = var * n_glob / torch.clamp_min(n_glob - 1.0, 1.0)
                 so["bn3"] = {
@@ -756,7 +774,7 @@ def mega_forward(
             a_s = adj(s)
             x_pool, adj_pool = ChunkedPoolContract.apply(
                 s, pembed, a_s, ch_seg if ch_seg else s.shape[0])
-        x_pool, adj_pool = psum(x_pool), psum(adj_pool)
+        x_pool, adj_pool = psum(x_pool, axis), psum(adj_pool, axis)
         if x_pool.shape[0] != d1:
             # lane-padded S: the pooled rows/cols past d1 are exact zeros
             x_pool, adj_pool = x_pool[:d1], adj_pool[:d1, :d1]
@@ -773,9 +791,9 @@ def mega_forward(
     # ---- stages 2-3 (pooled clusters, the same on every shard) ----
     def dense_stage(name, jk, xx, aa, pre12=None, pre_agg3=None):
         ones = torch.ones(xx.shape[0], dtype=xx.dtype, device=xx.device)
-        emb = _stage1_block(model, name, xx, _DenseAgg(aa), ones, cfg, train,
-                            lin=False, stats_out=stats_out, replicated=True,
-                            pre12=pre12, pre_agg3=pre_agg3)
+        emb = _stage1_block(model, name, xx, _DenseAgg(aa, axis), ones, cfg,
+                            train, lin=False, stats_out=stats_out,
+                            replicated=True, pre12=pre12, pre_agg3=pre_agg3)
         return _jk(jk, emb) if cfg.jk else emb
 
     if cfg.norm_adj:
@@ -783,15 +801,15 @@ def mega_forward(
     ones = torch.ones(x_pool.shape[0], dtype=x_pool.dtype, device=x.device)
     if paired:
         e12_2, p12_2, agg3_e2, agg3_p2 = _paired_layers12(
-            model, "embed2", "pool2", x_pool, _DenseAgg(adj_pool), ones, cfg,
-            train, stats_out, replicated=True)
+            model, "embed2", "pool2", x_pool, _DenseAgg(adj_pool, axis), ones,
+            cfg, train, stats_out, replicated=True)
     else:
         e12_2 = p12_2 = agg3_e2 = agg3_p2 = None
     embed2 = dense_stage("embed2", getattr(model, "jk2", None), x_pool,
                          adj_pool, pre12=e12_2, pre_agg3=agg3_e2)
     read2 = torch.amax(embed2, 0)
-    assign2 = _stage1_block(model, "pool2", x_pool, _DenseAgg(adj_pool), ones,
-                            cfg, train, lin=True, stats_out=stats_out,
+    assign2 = _stage1_block(model, "pool2", x_pool, _DenseAgg(adj_pool, axis),
+                            ones, cfg, train, lin=True, stats_out=stats_out,
                             replicated=True, pre12=p12_2, pre_agg3=agg3_p2)
     s2 = torch.softmax(assign2.float(), dim=-1).to(dtype)
     x3 = s2.t() @ embed2

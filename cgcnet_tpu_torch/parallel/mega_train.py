@@ -6,6 +6,17 @@ slide through ``mega_forward``: BatchNorm uses the whole graph's batch
 statistics and tracks running statistics (momentum 0.1), the head applies
 dropout drawn per step from a seed, and Adam takes optax's defaults
 (b1 0.9, b2 0.999, eps 1e-8 — the same update as ``optax.adam``).
+
+Over D shards (one process each) the gradient follows JAX's ``shard_map``
+transpose, which this package has to write out: each rank backpropagates
+loss / D (the loss is replicated), the collectives' backwards route the
+cotangents across ranks (``psum``: the sum of the cotangents;
+``all_gather``: each rank's slice summed; the halo exchange: the reverse
+all-to-all), and after the backward every parameter's gradient is summed
+over the graph axis (:func:`reduce_grads`). Every sum over the axis is
+fixed in order and bit-identical on every rank, and dropout draws the same
+mask on every rank, so after each step every rank holds the same
+parameters, Adam state and running statistics.
 """
 
 from __future__ import annotations
@@ -13,17 +24,34 @@ from __future__ import annotations
 import torch
 
 from cgcnet_tpu_torch.config import ModelConfig
+from cgcnet_tpu_torch.parallel.mega_graph import psum
 from cgcnet_tpu_torch.parallel.mega_model import (
     MegaInputs,
     apply_stats,
     mega_forward,
 )
+from cgcnet_tpu_torch.parallel.mesh import GraphAxis
 
 
 def make_optimizer(model, lr: float) -> torch.optim.Optimizer:
     """Adam over every parameter with optax.adam's constants."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8)
+
+
+def reduce_grads(model, axis: GraphAxis) -> None:
+    """Sum every parameter's gradient over the graph axis, one collective
+    per gradient dtype (nothing to do for one shard)."""
+    if axis.size == 1:
+        return
+    by_dtype: dict = {}
+    for prm in model.parameters():
+        if prm.grad is not None:
+            by_dtype.setdefault(prm.grad.dtype, []).append(prm.grad)
+    for grads in by_dtype.values():
+        flat = psum(torch.cat([g.reshape(-1) for g in grads]), axis)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
 
 def make_slide_train_step(
@@ -35,8 +63,9 @@ def make_slide_train_step(
     remat_stage1: bool = False,
 ):
     """step(inputs, label, generator=None) -> loss (a 0-d tensor): one
-    forward in training mode, -log softmax(logits)[label], backward, an
-    optimizer step, then the running statistics written into the model."""
+    forward in training mode, -log softmax(logits)[label], backward (over D
+    shards of loss / D, then :func:`reduce_grads`), an optimizer step, then
+    the running statistics written into the model."""
 
     def step(inputs: MegaInputs, label: int, generator=None):
         optimizer.zero_grad(set_to_none=True)
@@ -46,7 +75,9 @@ def make_slide_train_step(
             generator=generator,
         )
         loss = -torch.log_softmax(logits, dim=-1)[int(label)]
-        loss.backward()
+        shards = inputs.axis.size
+        (loss / shards if shards > 1 else loss).backward()
+        reduce_grads(model, inputs.axis)
         optimizer.step()
         apply_stats(model, new_stats)
         return loss.detach()

@@ -7,6 +7,10 @@ build the radius graph (the native grid hash when it is built), partition,
 and — on a CUDA device, where B1/B2/B8 run — build the block tables, the
 int8 blocks once per slide. ``SlideCaps`` pads every table dimension that
 varies with a slide's structure to sticky caps across a stream of slides.
+Over D shards every rank builds the same host tables from the same input
+(deterministic, as the JAX package's single controller builds them once),
+so the sticky caps of a stream agree across ranks, and keeps its own
+shard's rows of them.
 """
 
 from __future__ import annotations
@@ -22,11 +26,11 @@ from cgcnet_tpu_torch.dataflow.stats import reference_stats
 from cgcnet_tpu_torch.ops.bsr import G_BAND, TILE
 from cgcnet_tpu_torch.ops.knn import radius_knn_np
 from cgcnet_tpu_torch.parallel.mega_graph import (
-    MULTI_SHARD,
     build_bsr_tables,
     partition_graph,
 )
 from cgcnet_tpu_torch.parallel.mega_model import MegaInputs, prepare_mega_inputs
+from cgcnet_tpu_torch.parallel.mesh import ONE, GraphAxis
 
 
 @dataclass
@@ -59,7 +63,7 @@ class SlideBuild:
     """Device-ready slide inputs plus the construction facts callers
     report."""
 
-    inputs: MegaInputs
+    inputs: MegaInputs      # this rank's shard
     part: object            # mega_graph.ShardedGraphPartition
     n: int                  # real nuclei
     cap: int                # padded node capacity (multiple of 512*shards)
@@ -140,14 +144,15 @@ def wants_tables(device: torch.device) -> bool:
 
 
 def build_slide_inputs(cfg, feats, coords, shards: int, device,
-                       caps: SlideCaps | None = None) -> SlideBuild:
-    """feats [N, F_raw], coords [N, 2] -> :class:`SlideBuild` on ``device``
-    (one shard). Block tables are built only for a CUDA device, where the
-    kernels run (the JAX package builds them only on a TPU); a CPU build
-    takes the gather path. ``caps`` pads the tables to a stream's sticky
-    caps — pass the previous slide's ``SlideBuild.caps`` forward."""
-    if shards != 1:
-        raise NotImplementedError(MULTI_SHARD)
+                       caps: SlideCaps | None = None,
+                       axis: GraphAxis = ONE) -> SlideBuild:
+    """feats [N, F_raw], coords [N, 2] -> :class:`SlideBuild` of shard
+    ``axis.rank`` of ``shards`` on ``device`` (ValueError unless the axis
+    has ``shards`` ranks). Block tables are built only for a CUDA device,
+    where the kernels run (the JAX package builds them only on a TPU); a
+    CPU build takes the gather path. ``caps`` pads the tables to a stream's
+    sticky caps — pass the previous slide's ``SlideBuild.caps`` forward."""
+    axis.check(shards)
     device = torch.device(device)
     n = len(coords)
     mean, std = reference_stats(cfg.data.cross_val, cfg.data.feature_type)
@@ -178,7 +183,8 @@ def build_slide_inputs(cfg, feats, coords, shards: int, device,
         nbrp, maskp, shards, caps, wants_tables(device)
     )
     t_part = time.perf_counter() - t0
-    inputs = prepare_mega_inputs(xp, part, device, n_real=n, bsr=tables)
+    inputs = prepare_mega_inputs(xp, part, device, n_real=n, bsr=tables,
+                                 axis=axis)
     return SlideBuild(
         inputs=inputs, part=part, n=n, cap=cap, input_dim=x.shape[1],
         edges=int(maskp.sum()), bsr=tables is not None,

@@ -74,7 +74,7 @@ Phases, each fatal on failure (exit code != 0):
    route, which must pass, and one a rounding step off, which must fail);
    then B8 (the A @ S legs, the transpose legs with and without the
    accumulator, halo windows from shard 0 of a 4-shard stripe-sorted
-   partition — on no path of this run, 0 launches —, the ``epilogue_sw``
+   partition — its launches are phase 11's —, the ``epilogue_sw``
    option), B9a, B9b, B3, B4 (serving, and
    training's lane-padded ``c_out``), B5 (the training call and each
    capacity chunk) and the int8 B1/B2 legs against their plain versions on
@@ -84,7 +84,22 @@ Phases, each fatal on failure (exit code != 0):
    yardstick), and one B4 and one B9a call at the slide's shapes the device
    time of each of the head's launches (``split_ms``: row norm, product,
    softmax, and the padded weight copies as ``other``) from a
-   torch.profiler trace.
+   torch.profiler trace;
+11. the slide at 4 shards: 4 spawned ranks sharing the one card over
+   gloo (``parallel/mesh.py``'s backend rule; the collectives staged
+   through pinned host memory), each through the normal entry points:
+   ``cli.slide.main`` at ``--shards 4``, bf16, the phase-4 checkpoint (B1 =
+   2 per build, B2 = 3, B8 = 1, B4 = 1 per forward on every rank, B8 on
+   the halo windows wherever a rank's tables carry them), logits the same
+   bits on every rank and held, on rank 0, against the plain versions on
+   the same four shards at phase 8's bf16 rule; the 4-shard f32 forward
+   against the one-shard f32 forward of the same slide and weights at
+   ``LOGIT_ATOL``/``LOGIT_RTOL``; two bf16 ``make_slide_train_step``
+   steps (finite loss, every parameter and running statistic moved, and
+   after each step every rank's parameters, Adam state and running
+   statistics equal to rank 0's); CUDA-event times of the forward and the
+   steps beside the card's name and power limit — a correctness run of
+   one card, not a multi-card figure. A rank's failure fails the run.
 
 The statistics hold runs after the step holds of phases 9 and 10 that
 rest on it (it reads inputs those phases capture): a run whose statistics
@@ -213,7 +228,14 @@ TOL.update({
     ("B9b", "float32"): 1e-5, ("B9b", "bfloat16"): 2.0 ** -6,
 })
 PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest")
-SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity")
+SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity",
+               "slide_shards")
+# phase 11: the slide over SHARDS ranks sharing the one card over gloo
+# (parallel/mesh.py's backend rule), SHARD_STEPS training steps; a rank that
+# waits on the others longer than SHARD_TIMEOUT_S fails, and so the run
+SHARDS = 4
+SHARD_STEPS = 2
+SHARD_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -1750,8 +1772,9 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
                           else "cgcnet_tpu/ops/pallas/bsr_kernel.py:966 "
                           "(:1181 _banded_kernel)"),
                 # the halo-window kernel (:1097) runs at more than one
-                # shard only: no path of this run launches it
-                paths=() if "halo windows" in name else SLIDE_PATHS,
+                # shard: phase 11's ranks launch it
+                paths=(("slide_shards_halo",) if "halo windows" in name
+                       else SLIDE_PATHS),
                 extra={"nnz": work["nnz"], "dense_bound_ms": bound_ms(
                     work["bytes"], work["dense_ops"], dt_name)},
             )
@@ -2020,6 +2043,311 @@ def _banded_library_call(vals, blk_cols, win, x, halo, live):
     return lambda: a @ xx
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-shard slide, SHARDS ranks on the one card
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def shard_worker(rank: int, world: int, work: str, ckpt: str,
+                 cpu: bool) -> None:
+    """Rank ``rank`` of phase 11 (a spawned process): join the group of
+    ``world`` ranks (gloo, every rank on the one card), run
+    :func:`shard_rank`, save its results under ``work``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from cgcnet_tpu_torch.parallel.mesh import init_graph_axis
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    axis = init_graph_axis(
+        rank, world, cpu=cpu, init_method=f"file://{work}/init",
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        torch.save(shard_rank(axis, Path(work), Path(ckpt)),
+                   Path(work) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_rank(axis, work: Path, ckpt: Path) -> dict:
+    """One rank's part of phase 11: ``cli.slide.main`` at ``--shards``
+    SHARDS (bf16) with the counters read, the rank's own build of the same
+    inputs, its bf16 and f32 forwards and the plain versions' on the same
+    shards, then SHARD_STEPS bf16 training steps with the counters read and
+    the parameters, Adam state and running statistics saved after each."""
+    import torch
+    from cgcnet_tpu_torch.cli import slide as slide_cli
+    from cgcnet_tpu_torch.config import Config
+    from cgcnet_tpu_torch.ops import bsr
+    from cgcnet_tpu_torch.parallel.mega_model import mega_forward
+    from cgcnet_tpu_torch.parallel.mega_train import (
+        make_optimizer,
+        make_slide_train_step,
+    )
+    from cgcnet_tpu_torch.parallel.slide_setup import (
+        build_slide_inputs,
+        synthetic_slide,
+    )
+
+    device = axis.device
+    b8 = bsr.bsr_matmul_banded
+
+    def zero():
+        zero_counts()
+        b8.halo_window_launches = 0
+
+    def counts():
+        return {**read_counts(), "B8 halo": b8.halo_window_launches}
+
+    out = {"backend": axis.backend, "staged": axis.staged}
+    zero()
+    t0 = time.time()
+    res = slide_cli.main(
+        ["--synthetic", "--nuclei", str(SLIDE_NUCLEI), "--shards",
+         str(axis.size), "--ckpt", str(ckpt), *SLIDE_DTYPE,
+         *(["--cpu"] if device.type == "cpu" else [])])
+    torch.cuda.synchronize()
+    out.update(serve=counts(), cli_wall_s=time.time() - t0,
+               cli_logits=res["logits"], cli_bsr=res["bsr"], cap=res["cap"])
+
+    cfg, cfg32 = Config().apply_overrides(SLIDE_DTYPE), Config()
+    feats, coords = synthetic_slide(SLIDE_NUCLEI)
+    inputs = build_slide_inputs(cfg, feats, coords, axis.size, device,
+                                axis=axis).inputs
+    out.update(win_halo=inputs.win_halo is not None,
+               hybrid=inputs.blk_cols_t.shape[0] * bsr.TILE
+               < inputs.nbr_t.shape[0])
+    model = slide_model(cfg, ckpt, device)
+    with torch.no_grad():
+        out["logits"] = mega_forward(model, cfg.model, inputs).cpu()
+        out["forward_ms"] = time_ms(
+            lambda: mega_forward(model, cfg.model, inputs), reps=5, warmup=1)
+        out["split"] = collective_split(
+            lambda: mega_forward(model, cfg.model, inputs))
+        out["logits32"] = mega_forward(model, cfg32.model, inputs).cpu()
+        with sites_replaced(all_plain):
+            out["plain16"] = mega_forward(model, cfg.model, inputs).cpu()
+            out["plain32"] = mega_forward(model, cfg32.model, inputs).cpu()
+    del model
+
+    m = slide_model(cfg, ckpt, device).train()
+    params0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+    stats0 = {n: b.clone() for n, b in m.named_buffers()}
+    opt = make_optimizer(m, 1e-3)
+    step = make_slide_train_step(m, cfg.model, opt)
+    zero()
+    losses, times = [], []
+    for i in range(SHARD_STEPS):
+        gen = torch.Generator(device=device).manual_seed(100 + i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(inputs, 1, gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        state = {f"param.{n}": p.detach().cpu()
+                 for n, p in m.named_parameters()}
+        state.update({f"buffer.{n}": b.cpu() for n, b in m.named_buffers()})
+        for n, p in m.named_parameters():
+            state.update({f"adam.{n}.{k}": v.cpu()
+                          for k, v in opt.state[p].items()})
+        torch.save(state, work / f"state{axis.rank}_{i}.pt")
+    out.update(
+        train=counts(), losses=losses, step_ms=times,
+        moved=sum(not torch.equal(p.detach(), params0[n])
+                  for n, p in m.named_parameters()),
+        stats_moved=sum(not torch.equal(b, stats0[n])
+                        for n, b in m.named_buffers()),
+        n_params=len(params0), n_stats=len(stats0))
+    return out
+
+
+def collective_split(fn) -> dict:
+    """One call of ``fn`` on the host clock (from a device sync to a device
+    sync) and the part of it spent inside the graph axis's collectives
+    (each from a device sync to its return: staging through host memory,
+    the transfer, and waiting on the other ranks), with their count."""
+    import torch
+    from cgcnet_tpu_torch.parallel import mega_graph
+
+    spent = {"ms": 0.0, "calls": 0}
+    originals = (mega_graph._gather_raw, mega_graph._all_to_all_raw)
+
+    def timed(raw):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = raw(*args)
+            torch.cuda.synchronize()
+            spent["ms"] += (time.perf_counter() - t0) * 1e3
+            spent["calls"] += 1
+            return res
+        return call
+
+    mega_graph._gather_raw, mega_graph._all_to_all_raw = map(timed, originals)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        mega_graph._gather_raw, mega_graph._all_to_all_raw = originals
+    return {"forward_ms": total, "collective_ms": spent["ms"],
+            "collectives": spent["calls"]}
+
+
+def shards_phase(tmp: Path, device, ckpt: Path) -> dict:
+    """Phase 11 (see the module docstring). Returns the launch counts of
+    its main path (``slide_shards``: the CLI's build and forwards and the
+    training steps, summed over the ranks; ``slide_shards_halo``: B8's
+    halo-window launches) and its numbers."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from cgcnet_tpu_torch.config import Config
+    from cgcnet_tpu_torch.parallel.mega_model import mega_forward
+    from cgcnet_tpu_torch.parallel.slide_setup import (
+        build_slide_inputs,
+        synthetic_slide,
+    )
+
+    log(f"phase 11: the slide at {SHARDS} shards ({SHARDS} ranks on one "
+        f"card over gloo; cli.slide, bf16 and f32 forwards, "
+        f"{SHARD_STEPS} bf16 steps)")
+    # the one-shard f32 forward of the same slide and weights on this card
+    cfg32 = Config()
+    feats, coords = synthetic_slide(SLIDE_NUCLEI)
+    one = build_slide_inputs(cfg32, feats, coords, 1, device).inputs
+    with torch.no_grad():
+        one32 = mega_forward(slide_model(cfg32, ckpt, device), cfg32.model,
+                             one).cpu()
+    del one
+    torch.cuda.empty_cache()
+
+    work = tmp / "shards"
+    work.mkdir()
+    t0 = time.time()
+    ctx = mp.start_processes(
+        shard_worker, args=(SHARDS, str(work), str(ckpt),
+                            device.type == "cpu"),
+        nprocs=SHARDS, join=False, start_method="spawn")
+    deadline = t0 + 2 * SHARD_TIMEOUT_S
+    try:
+        # a rank's failure raises here (its traceback) and ends the others
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise SystemExit(f"phase 11: the ranks ran past "
+                                 f"{2 * SHARD_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    wall = time.time() - t0
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(SHARDS)]
+    r0 = ranks[0]
+
+    want_serve = {k: SLIDE_BUILD.get(k, 0) + 2 * SLIDE_FORWARD.get(k, 0)
+                  for k in KERNELS}
+    want_train = expected(SLIDE_TRAIN_PER_STEP, SHARD_STEPS)
+    halo = []
+    for r, rk in enumerate(ranks):
+        serve = {k: rk["serve"][k] for k in KERNELS}
+        train = {k: rk["train"][k] for k in KERNELS}
+        halo.append(rk["serve"]["B8 halo"] + rk["train"]["B8 halo"])
+        log(f"  rank {r} ({rk['backend']}, staged through host memory: "
+            f"{rk['staged']}): halo windows {rk['win_halo']}, hybrid "
+            f"transpose {rk['hybrid']}; cli.slide launches {serve}, "
+            f"{SHARD_STEPS} steps {train}; B8 halo-window launches "
+            f"{rk['serve']['B8 halo']} + {rk['train']['B8 halo']}")
+        if serve != want_serve or train != want_train:
+            raise SystemExit(f"phase 11 rank {r}: launches {serve} / {train} "
+                             f"!= {want_serve} / {want_train}")
+        if rk["win_halo"] and not (rk["serve"]["B8 halo"]
+                                   and rk["train"]["B8 halo"]):
+            raise SystemExit(f"phase 11 rank {r}: tables with halo windows, "
+                             f"B8's halo-window kernel not launched")
+        same = (np.array_equal(rk["cli_logits"], r0["cli_logits"])
+                and all(torch.equal(rk[k], r0[k]) for k in
+                        ("logits", "logits32", "plain16", "plain32"))
+                and rk["losses"] == r0["losses"])
+        if not same:
+            raise SystemExit(f"phase 11 rank {r}: logits or losses differ "
+                             f"from rank 0's")
+        if (rk["moved"] != rk["n_params"] or rk["stats_moved"] != rk["n_stats"]
+                or not np.isfinite(rk["losses"]).all()):
+            raise SystemExit(
+                f"phase 11 rank {r}: losses {rk['losses']}, parameters "
+                f"changed {rk['moved']}/{rk['n_params']}, running statistics "
+                f"{rk['stats_moved']}/{rk['n_stats']}")
+    if not any(rk["win_halo"] for rk in ranks) or not sum(halo):
+        raise SystemExit("phase 11: no rank launched B8's halo-window kernel")
+    log(f"  B8 halo-window launches per rank: {halo}")
+    for i in range(SHARD_STEPS):
+        s0 = torch.load(work / f"state0_{i}.pt", weights_only=False)
+        for r in range(1, SHARDS):
+            sr = torch.load(work / f"state{r}_{i}.pt", weights_only=False)
+            diff = [n for n, t in s0.items()
+                    if n not in sr or not torch.equal(sr[n], t)]
+            if diff or set(sr) != set(s0):
+                raise SystemExit(f"phase 11 step {i}: rank {r}'s state "
+                                 f"differs from rank 0's: {diff[:5]}")
+    log(f"  after each of {SHARD_STEPS} steps every rank's parameters, Adam "
+        f"state and running statistics equal rank 0's "
+        f"({len(s0)} tensors); losses {r0['losses']}")
+
+    logits, plain16, plain32 = r0["logits"], r0["plain16"], r0["plain32"]
+    err = (logits - plain16).abs().max().item()
+    spread = BF16_WIDEN * (plain16 - plain32).abs().max().item()
+    lim = LOGIT_ATOL + LOGIT_RTOL * plain16.abs().max().item() + spread
+    log(f"  bf16 logits {logits.tolist()} vs plain versions on the same "
+        f"shards {plain16.tolist()} (f32 plain {plain32.tolist()}): max abs "
+        f"diff {err:.3e} (tol {lim:.3e}: the f32 rule plus {BF16_WIDEN:g}x "
+        f"{spread / BF16_WIDEN:.3e}); cli.slide {r0['cli_logits'].tolist()}")
+    if not err <= lim or int(logits.argmax()) != int(plain16.argmax()):
+        raise SystemExit("phase 11: bf16 logits, kernels vs plain versions")
+    ok32 = np.allclose(r0["logits32"].numpy(), one32.numpy(),
+                       atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    log(f"  f32 logits at {SHARDS} shards {r0['logits32'].tolist()} vs one "
+        f"shard {one32.tolist()} (atol {LOGIT_ATOL}, rtol {LOGIT_RTOL}): "
+        f"{'ok' if ok32 else 'FAIL'}")
+    if not ok32:
+        raise SystemExit("phase 11: f32 logits differ with the shard count")
+    fwd = [rk["forward_ms"] for rk in ranks]
+    steps = [rk["step_ms"] for rk in ranks]
+    log(f"  one bf16 forward per rank on the host clock: "
+        + "; ".join(f"rank {r} {rk['split']['forward_ms']:.3f} ms, "
+                    f"{rk['split']['collectives']} collectives "
+                    f"{rk['split']['collective_ms']:.3f} ms"
+                    for r, rk in enumerate(ranks)))
+    log(f"  timing ({card_line()}; one card, {SHARDS} ranks over gloo, the "
+        f"collectives staged through host memory: a correctness run, not a "
+        f"multi-card figure): bf16 forward {fwd[0]:.3f} ms on rank 0 "
+        f"(median of 5, CUDA events; every rank {[round(v, 3) for v in fwd]})"
+        f", steps {[round(v, 3) for v in steps[0]]} ms on rank 0 (CUDA "
+        f"events; first step included); phase wall {wall:.1f} s")
+    total = {k: sum(rk["serve"][k] + rk["train"][k] for rk in ranks)
+             for k in KERNELS}
+    return {"paths": {"slide_shards": total,
+                      "slide_shards_halo": {"B8": sum(halo)}},
+            "shards_forward_ms": fwd[0], "shards_step_ms": steps[0],
+            "shards_wall_s": wall, "shards_halo_launches": halo,
+            "shards_forward_split": r0["split"]}
+
+
 def slice_phase(tmp: Path, device) -> dict:
     import torch
     from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
@@ -2087,6 +2415,10 @@ def slice_phase(tmp: Path, device) -> dict:
     log("  slide kernels vs plain versions (inputs of phases 8-10)")
     slide_kernels, stats = slide_kernel_phase(slide_seen, device)
     kernels += slide_kernels
+    del slide_seen
+    torch.cuda.empty_cache()
+    shards = shards_phase(tmp, device, tmp / "model_SAGE.pt")
+    paths.update(shards.pop("paths"))
     for entry in kernels:
         key = entry.pop("key")
         by_path = {name: paths[name][key] for name in entry.pop("paths")}
@@ -2094,7 +2426,7 @@ def slice_phase(tmp: Path, device) -> dict:
         entry["launches_by_path"] = by_path
         if by_path and entry["launches"] == 0:
             raise SystemExit(f"{entry['name']}: no launch on any path")
-    return {**slide, "kernels": kernels, "stats_hold": stats,
+    return {**slide, **shards, "kernels": kernels, "stats_hold": stats,
             "forward_ms_per_batch": fwd_ms,
             "predict_wall_s": wall, "train_step_ms": train["step_ms"],
             "train_steps": train["steps"], "train_cli_wall_s": train["cli_wall_s"],
@@ -2156,10 +2488,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     log("phase 1: device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 

@@ -3,7 +3,7 @@ CPU: grading a synthetic slide with JAX weights carried over (against JAX's
 ``mega_forward`` on JAX's own build of the same slide), the ``--slides``
 stream with sticky caps, the ``--train-epochs``/``--out``/``--ckpt`` round
 trip, ``load_partial``'s skipping, and the refusals (no card without
-``--cpu``, more than one shard).
+``--cpu``, more than one shard without the launcher's process group).
 
 Logits are held at atol 2e-5, rtol 1e-4 (the golden tolerance); the round
 trip exactly (the same weights through the same deterministic forward).
@@ -126,7 +126,8 @@ def test_load_partial_skips_mismatched(jax_weights, tmp_path):
 
 def test_slide_cli_refuses(jax_weights):
     _, ckpt = jax_weights
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # more than one shard without the launcher's group: refused, naming it
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         slide_cli.main(["--cpu", "--synthetic", "--nuclei", "600",
                         "--shards", "2"])
     if not torch.cuda.is_available():

@@ -2,7 +2,8 @@
 (``parallel/mega_graph.py``), the band-window tables (``ops/bsr.py``), the
 spatial sort and the slide build (``parallel/slide_setup.py``) against the
 JAX package's functions on the same numpy inputs, and the one-shard
-collectives.
+collectives and their refusal of tables built for more shards
+(tests/test_torch_multishard.py runs them over D ranks).
 
 Every table is integer or 0/1 bookkeeping computed by the same numpy
 algorithm, so every comparison is exact; ``build_slide_inputs``' features
@@ -206,16 +207,21 @@ def test_one_shard_collectives():
         auto.numpy(), atol=0)
     assert tmg.psum(x) is x
     assert tmg.all_gather(x).shape == (1, 256, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmg.psum(x, shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # tables built for 2 shards in a graph axis of one rank: refused, with
+    # the launcher named (one process per shard)
+    launcher = "torch.distributed.run"
+    with pytest.raises(ValueError, match=launcher):
         tmg.halo_exchange(x, torch.zeros((2, 4), dtype=torch.int32),
                           torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match=launcher):
+        tmg.halo_exchange_vjp(torch.zeros((8, 5)),
+                              torch.zeros((2, 4), dtype=torch.int32),
+                              torch.zeros((2, 4)), 256)
     nbr, mask = strip_graph(1024, 2)
     part = tmg.partition_graph(nbr, mask, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=launcher):
         tmm.prepare_mega_inputs(np.zeros((1024, 18), np.float32), part, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=launcher):
         tss.build_slide_inputs(Config(), *tss.synthetic_slide(600), 2, "cpu")
 
 
