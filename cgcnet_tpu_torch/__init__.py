@@ -12,8 +12,12 @@ forward of the canonical SAGE/JK/norm_adj model, image-level metric), the
 training path (``cli/train.py``: training-mode forward and backward, torch
 optimizers with StepLR, ``Trainer`` with validation, checkpoints, resume),
 every model option of the patch path (GIN, GAT, the gather path) and the
-whole-slide path on one shard (``cli/slide.py``, ``parallel/``: serving,
-fine-tuning and the chunked capacity tail of an unsampled slide).
+whole-slide path at one or more shards (``cli/slide.py``, ``parallel/``:
+serving, fine-tuning and the chunked capacity tail of an unsampled slide),
+and the remaining entry points and host code: ``cli/export.py``
+(``torch.export``, the kernels as custom ops), ``cli/crossval.py``,
+``cli/preprocess.py``, GEXF dumps, profiling, the random and fixed-epoch
+samplers and dynamic buckets.
 """
 
 from cgcnet_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig

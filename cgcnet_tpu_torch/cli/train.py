@@ -35,7 +35,7 @@ def parse_args(argv=None):
     p.add_argument(
         "--visualize",
         action="store_true",
-        help="dump GEXF cluster-assignment files (not ported yet: raises)",
+        help="dump GEXF cluster-assignment files during the final evaluation",
     )
     p.add_argument(
         "--cpu",
@@ -53,11 +53,6 @@ def main(argv=None) -> dict:
     from cgcnet_tpu_torch.cli.predict import select_device
 
     device = select_device(args.cpu)
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize: not ported yet (utils, remaining entry points and "
-            "host code)"
-        )
     if args.config:
         with open(args.config) as f:
             cfg = Config.from_json(f.read())
@@ -120,6 +115,7 @@ def main(argv=None) -> dict:
     final = evaluate(
         trainer.state, val_loader,
         test_time=cfg.train.test_epoch if multi_sample else 1,
+        visualize_dir=(trainer.run_dir / "visual") if args.visualize else None,
         vote_per_repeat=cfg.train.vote_per_repeat,
         max_num_examples=cfg.train.eval_max_examples or None,
     )

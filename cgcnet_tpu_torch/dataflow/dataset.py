@@ -13,9 +13,10 @@ epoch). Re-design of the reference L3 dataflow (dataflow/data.py):
 - Output is the static-shape padded ELL layout (core/graph.py) instead of a
   [Nmax, Nmax] dense adjacency (data.py:234): node capacity is rounded up to
   a multiple of 128, the BSR tile.
-
-Offline fixed-epoch replay (``data.use_fixed``) and the random graph sampler
-are not ported yet and raise.
+- ``data.use_fixed`` replays the offline index files of
+  ``dataflow/fixed_epochs.py``; ``data.graph_sampler='random'`` builds the
+  distance-thresholded random graph of ``dataflow/random_graph.py`` (ELL of
+  width 2·max_neighbours+1) instead of the radius-kNN graph.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ import numpy as np
 from cgcnet_tpu_torch.config import DataConfig
 from cgcnet_tpu_torch.core.convert import transpose_ell_np
 from cgcnet_tpu_torch.dataflow import native
+from cgcnet_tpu_torch.dataflow.fixed_epochs import load_fixed_choice
 from cgcnet_tpu_torch.dataflow.proto import load_proto, list_protos
+from cgcnet_tpu_torch.dataflow.random_graph import random_distance_graph_ell
 from cgcnet_tpu_torch.dataflow.rng import patch_rng
 from cgcnet_tpu_torch.dataflow import stats as stats_mod
 from cgcnet_tpu_torch.ops.bsr import bsr_block_meta as bsr_block_meta_np
@@ -102,12 +105,10 @@ class NucleiGraphDataset:
         *,
         transpose_width: int = 24,
         full_graph: bool = False,
+        use_reference_stats: bool = False,
     ):
-        if cfg.use_fixed or cfg.graph_sampler != "knn":
-            raise NotImplementedError(
-                "data.use_fixed and data.graph_sampler='random' are not "
-                "ported yet"
-            )
+        if cfg.graph_sampler not in ("knn", "random"):
+            raise ValueError(f"unknown graph_sampler {cfg.graph_sampler!r}")
         self.cfg = cfg
         self.split = split
         # full-graph mode: no subsampling, capacity covers the unsampled
@@ -135,7 +136,14 @@ class NucleiGraphDataset:
         self._graph_cache_bytes = 0
         self._graph_cache_lock = threading.Lock()
         self.graph_cache_hits = 0
-        self.mean, self.std = self._compute_stats()
+        self._node_counts: dict[int, int] = {}
+        if use_reference_stats:
+            # the reference's published per-fold tables (dataflow/data.py:21-45)
+            self.mean, self.std = stats_mod.reference_stats(
+                cfg.cross_val, cfg.feature_type
+            )
+        else:
+            self.mean, self.std = self._compute_stats()
 
     # ------------------------------------------------------------------
     def _compute_stats(self) -> tuple[np.ndarray, np.ndarray]:
@@ -225,18 +233,47 @@ class NucleiGraphDataset:
             )
         return proto
 
+    def sampled_count(self, idx: int, epoch: int) -> int:
+        """Node count of the graph ``get``/``fill_into`` would build for
+        (idx, epoch) — computable without building it, so the loader can
+        size dynamic per-batch capacity buckets up front."""
+        cfg = self.cfg
+        n = self._node_counts.get(idx)
+        if n is None:
+            n = self._node_counts.setdefault(
+                idx, int(self._load_proto(self.names[idx]).num_nodes)
+            )
+        if self.full_graph:
+            return min(n, self.capacity)
+        if cfg.use_fixed:
+            choice = load_fixed_choice(
+                cfg, self.names[idx], epoch % cfg.num_fixed_epochs
+            )
+            return min(len(choice) if choice is not None else n, self.capacity)
+        if cfg.sample_ratio < 1.0 and n >= cfg.min_nodes_no_subsample:
+            return min(int(n * cfg.sample_ratio), self.capacity)
+        return min(n, self.capacity)
+
     # ------------------------------------------------------------------
     def _cache_key(self, idx: int, epoch: int):
         """Built-graph cache key, or None when the sample's content is not
         epoch-periodic (then caching would be wrong, not just wasteful).
 
         Sample content is a pure function of (seed, patch, epoch)
-        (dataflow/rng.py). A full-graph kNN dataset samples nothing, so its
-        content repeats every epoch; dynamic subsampling draws fresh
-        per-epoch randomness — never cached.
+        (dataflow/rng.py). It is periodic in the epoch exactly when the RNG
+        stream is not consumed per epoch: fixed-epoch mode replays offline
+        choices keyed by epoch % num_fixed_epochs (reference protocol,
+        prepare_cv_dataset.py:75-109) and a full-graph kNN dataset samples
+        nothing at all. Dynamic subsampling and the random graph sampler
+        draw fresh per-epoch randomness — never cached.
         """
-        if self.cfg.graph_cache_mb > 0 and self.full_graph:
+        cfg = self.cfg
+        if cfg.graph_cache_mb <= 0 or cfg.graph_sampler != "knn":
+            return None
+        if self.full_graph:
             return (idx, 0)
+        if cfg.use_fixed:
+            return (idx, epoch % cfg.num_fixed_epochs)
         return None
 
     def _cache_put(self, key, value, nbytes: int) -> None:
@@ -257,6 +294,7 @@ class NucleiGraphDataset:
         cfg = self.cfg
         return (
             native.available()
+            and cfg.graph_sampler == "knn"
             and cfg.spatial_sort
             and cfg.sampling_method in ("fuse", "farthest", "random")
         )
@@ -298,6 +336,9 @@ class NucleiGraphDataset:
         )
         choice = None
         if self.full_graph:
+            num_sub, far_num = n, 0
+        elif cfg.use_fixed:
+            choice = load_fixed_choice(cfg, name, epoch % cfg.num_fixed_epochs)
             num_sub, far_num = n, 0
         elif cfg.sample_ratio < 1.0 and n >= cfg.min_nodes_no_subsample:
             num_sub = min(int(n * cfg.sample_ratio), self.capacity)
@@ -344,6 +385,11 @@ class NucleiGraphDataset:
         presorted = False
         if self.full_graph:
             pass  # full unsampled graph (NucleiDatasetTest mode)
+        elif cfg.use_fixed:
+            choice = load_fixed_choice(cfg, name, epoch % cfg.num_fixed_epochs)
+            if choice is not None and len(choice) < n:
+                feats, coords = feats[choice], coords[choice]
+                n = len(choice)
         elif cfg.sample_ratio < 1.0:
             choice = self._subsample_sorted(n, coords, rng)
             presorted = choice is not None
@@ -363,10 +409,15 @@ class NucleiGraphDataset:
             order = np.lexsort((coords[:, 1], band))
             feats, coords = feats[order], coords[order]
 
-        nbr, mask = _radius_knn(
-            coords, cfg.max_edge_distance, cfg.max_neighbours,
-            scan_order=cfg.knn_scan_order,
-        )
+        if cfg.graph_sampler == "knn":
+            nbr, mask = _radius_knn(
+                coords, cfg.max_edge_distance, cfg.max_neighbours,
+                scan_order=cfg.knn_scan_order,
+            )
+        else:
+            nbr, mask = random_distance_graph_ell(
+                coords, cfg.max_edge_distance, cfg.max_neighbours, rng
+            )
         nbr_t, mask_t, _ = _transpose(nbr, mask, self.transpose_width)
 
         x = (self._slice_features(feats) - self.mean) / self.std

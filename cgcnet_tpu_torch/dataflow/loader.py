@@ -37,7 +37,10 @@ class GraphLoader:
 
     Batches go to the CUDA device unless ``device`` names another (the
     tests pass ``device="cpu"``). ``drop_last`` drops the ragged final
-    batch (training); ``dynamic_buckets`` is not ported yet and raises."""
+    batch (training). ``dynamic_buckets`` pads each batch to 128 x the next
+    power of two over its largest sampled graph instead of the dataset
+    capacity (fewer padded rows for small batches, a bounded set of
+    shapes)."""
 
     def __init__(
         self,
@@ -51,11 +54,6 @@ class GraphLoader:
         seed: int = 0,
         dynamic_buckets: bool = False,
     ):
-        if dynamic_buckets:
-            raise NotImplementedError(
-                "data.dynamic_buckets is not ported yet (remaining host code): "
-                "batches pad to the dataset capacity"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -77,7 +75,8 @@ class GraphLoader:
         else:
             self.num_workers = num_workers
         self.seed = seed
-        self.capacity = dataset.capacity
+        # fixed capacity unless dynamic bucketing is on (then per batch)
+        self.capacity = None if dynamic_buckets else dataset.capacity
         self.bsr_blocks = dataset.cfg.bsr_blocks
         # grow-only per-direction BSR cap floors shared by all batches
         self._sticky_caps: dict = {}
@@ -91,6 +90,16 @@ class GraphLoader:
     def batches_per_epoch(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def bucket_capacity(self, idxs, epoch: int) -> int:
+        """A dynamic bucket: 128 x the next power of two over the batch's
+        sampled node counts (collate's quantization, so the fast and the
+        numpy paths give the same shapes)."""
+        need = max(self.dataset.sampled_count(int(i), epoch) for i in idxs)
+        cap = 128
+        while cap < need:
+            cap *= 2
+        return cap
 
     def build_batch(self, idxs, epoch: int) -> dict[str, np.ndarray]:
         """Collated numpy batch (with BSR metadata) of dataset items
@@ -110,7 +119,7 @@ class GraphLoader:
         # batch buffers (dataset.fill_into)
         ds = self.dataset
         b = len(idxs)
-        cap = self.capacity
+        cap = self.capacity or self.bucket_capacity(idxs, epoch)
         k, kt = ds.cfg.max_neighbours, ds.transpose_width
         f = ds.cfg.num_features
         batch = {

@@ -83,6 +83,10 @@ def _load_locked():
         f32p, i32p, f32p, i32p, f32p,              # outputs
     ]
     lib.build_patch.restype = i64
+    lib.local_entropy_u8.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), i64, i64, ctypes.c_int, f32p,
+    ]
+    lib.local_entropy_u8.restype = ctypes.c_int
     _LIB = lib
     return _LIB
 
@@ -250,3 +254,17 @@ def build_patch(
             _i32p(out_nbr_t), _f32p(out_mask_t),
         )
     )
+
+
+def local_entropy_u8(gray: np.ndarray, radius: int = 3) -> np.ndarray:
+    """Sliding-histogram disk entropy (bits, reflect border), f32 [h, w]."""
+    lib = _load()
+    assert lib is not None
+    gray = np.ascontiguousarray(gray, np.uint8)
+    h, w = gray.shape
+    out = np.zeros((h, w), np.float32)
+    lib.local_entropy_u8(
+        gray.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, radius,
+        _f32p(out),
+    )
+    return out

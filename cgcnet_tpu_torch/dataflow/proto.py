@@ -24,6 +24,10 @@ from pathlib import Path
 import numpy as np
 
 
+LABEL_NAMES = {"1_normal": 0, "2_low_grade": 1, "3_high_grade": 2}
+# grade encoded in directory names, reference prepare_cv_dataset.py:64-69
+
+
 @dataclasses.dataclass
 class PatchProto:
     name: str                 # e.g. "fold_1/1_normal/patchA"

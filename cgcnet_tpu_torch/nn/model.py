@@ -178,8 +178,14 @@ class CGCNet(nn.Module):
                 mod.reset_parameters(generator)
 
     def forward(
-        self, graph: CellGraph, generator: Optional[torch.Generator] = None
-    ) -> torch.Tensor:
+        self,
+        graph: CellGraph,
+        generator: Optional[torch.Generator] = None,
+        collect_assign: bool = False,
+    ) -> torch.Tensor | tuple[torch.Tensor, list[torch.Tensor]]:
+        """Logits, or with ``collect_assign`` (logits, [S1, S2]): the
+        soft assignments of the two DiffPool stages, S1 [B, N, C1] (B4's or
+        B6's output where the fused head runs) and S2 [B, C1, C2]."""
         c = self.cfg
         dtype = DTYPES[c.compute_dtype]
         x = graph.x.to(dtype)
@@ -207,9 +213,10 @@ class CGCNet(nn.Module):
             embed = self.jk1(embed)
         outs.append(masked_max_readout(embed, mask, c.masked_readout))
         if fsm:
+            s1 = assign_out[0]
             x, pooled_adj = diff_pool_from_s(embed, adj, *assign_out)
         else:
-            x, pooled_adj, _ = diff_pool(embed, adj, assign_out, mask)
+            x, pooled_adj, s1 = diff_pool(embed, adj, assign_out, mask)
 
         # ---- stage 2: dense clusters ----
         if c.norm_adj:
@@ -221,7 +228,7 @@ class CGCNet(nn.Module):
         if c.jk:
             embed = self.jk2(embed)
         outs.append(torch.amax(embed, dim=1))
-        x, pooled_adj, _ = diff_pool(embed, adj2, assign_logits, None)
+        x, pooled_adj, s2 = diff_pool(embed, adj2, assign_logits, None)
 
         # ---- stage 3 ----
         if c.norm_adj:
@@ -239,7 +246,10 @@ class CGCNet(nn.Module):
             h = act(getattr(self, name)(h))
             if self.training and c.drop_out > 0:
                 h = dropout(h, c.drop_out, generator)
-        return self.pred_out(h).float()
+        logits = self.pred_out(h).float()
+        if collect_assign:
+            return logits, [s1, s2]
+        return logits
 
 
 def dropout(

@@ -53,10 +53,12 @@ launches ``csrc/assign_head.cu`` or ``csrc/assign_tail.cu`` for CUDA tensors.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from cgcnet_tpu_torch.ops import _cuda
-from cgcnet_tpu_torch.parallel.mega_graph import psum
+from cgcnet_tpu_torch.parallel import mega_graph
 from cgcnet_tpu_torch.parallel.mesh import ONE
 
 TILE = 128
@@ -249,12 +251,34 @@ def assign_head_softmax_pre(
     if p.device.type == "cpu":
         return assign_head_softmax_pre_plain(x12, p, k12, k3f, const, n_nodes,
                                              c_out)
+    if torch.compiler.is_compiling():
+        s = assign_head_softmax_pre_op(x12, p, k12, k3f, const, n_nodes, c_out)
+        return s, s.transpose(1, 2)
     s = _launch_head(True, x12, p, k12, k3f, const, n_nodes, c_out)
     assign_head_softmax_pre.launches += 1
     return s, s.transpose(1, 2)
 
 
 assign_head_softmax_pre.launches = 0
+
+
+@torch.library.custom_op("cgcnet_tpu_torch::assign_head_softmax_pre",
+                         mutates_args=())
+def assign_head_softmax_pre_op(
+    x12: torch.Tensor, p: torch.Tensor, k12: torch.Tensor, k3f: torch.Tensor,
+    const: torch.Tensor, n_nodes: torch.Tensor, c_out: Optional[int] = None,
+) -> torch.Tensor:
+    """B4 as ``torch.ops.cgcnet_tpu_torch.assign_head_softmax_pre``: what a
+    traced program (``torch.export``) records where the wrapper meets a
+    CUDA tensor; running it calls the wrapper, which launches the kernel.
+    Returns S only (an op's outputs alias nothing); S^T is its transpose."""
+    return assign_head_softmax_pre(x12, p, k12, k3f, const, n_nodes, c_out)[0]
+
+
+@assign_head_softmax_pre_op.register_fake
+def _(x12, p, k12, k3f, const, n_nodes, c_out=None):
+    b, n, c = p.shape
+    return p.new_empty((b, n, c if c_out is None else c_out))
 
 
 # ---------------------------------------------------------------------------
@@ -296,12 +320,30 @@ def assign_head_softmax(
     _check_head("assign_head_softmax", x12, h3a, k12, k3f, const, n_nodes)
     if h3a.device.type == "cpu":
         return assign_head_softmax_plain(x12, h3a, k12, k3f, const, n_nodes)
+    if torch.compiler.is_compiling():
+        return assign_head_softmax_op(x12, h3a, k12, k3f, const, n_nodes)
     s = _launch_head(False, x12, h3a, k12, k3f, const, n_nodes)
     assign_head_softmax.launches += 1
     return s
 
 
 assign_head_softmax.launches = 0
+
+
+@torch.library.custom_op("cgcnet_tpu_torch::assign_head_softmax",
+                         mutates_args=())
+def assign_head_softmax_op(
+    x12: torch.Tensor, h3a: torch.Tensor, k12: torch.Tensor,
+    k3f: torch.Tensor, const: torch.Tensor, n_nodes: torch.Tensor,
+) -> torch.Tensor:
+    """B6 as ``torch.ops.cgcnet_tpu_torch.assign_head_softmax`` (see
+    :func:`assign_head_softmax_pre_op`)."""
+    return assign_head_softmax(x12, h3a, k12, k3f, const, n_nodes)
+
+
+@assign_head_softmax_op.register_fake
+def _(x12, h3a, k12, k3f, const, n_nodes):
+    return h3a.new_empty(h3a.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -613,7 +655,7 @@ class AssignTailTrainPsum(torch.autograd.Function):
     def forward(ctx, x12, p, k12, k3, lin_bias, bn_scale, bn_bias, n_nodes,
                 n, eps, c_out, axis):
         ssum, ssq = l2relu_stats(p, n_nodes)
-        ssum, ssq = psum(ssum, axis), psum(ssq, axis)
+        ssum, ssq = mega_graph.psum(ssum, axis), mega_graph.psum(ssq, axis)
         k3f, const, mean, var = tail_algebra(
             ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps
         )
@@ -644,7 +686,8 @@ class AssignTailTrainPsum(torch.autograd.Function):
         dk3f = torch.einsum("bnc,bnd->cd", h.float(), dl.float())[:, :c]
         dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
             (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
-            dk3f, dconst, psum(dk3f, ctx.axis), psum(dconst, ctx.axis),
+            dk3f, dconst, mega_graph.psum(dk3f, ctx.axis),
+            mega_graph.psum(dconst, ctx.axis),
         )
         dp = assign_tail_bwd(p, dh, dssum, dssq, n_nodes)
         return (dx12, dp, dk12, dk3, dlin_bias, dbn_scale, dbn_bias,
@@ -925,7 +968,7 @@ class AssignTailTrainChunkedLin(torch.autograd.Function):
     def forward(ctx, x12, x3, kc3, b3, k12, k3, lin_bias, bn_scale, bn_bias,
                 n_nodes, n, eps, chunk_rows, axis):
         ssum, ssq = l2relu_stats_lin(x3, kc3, b3, n_nodes)
-        ssum, ssq = psum(ssum, axis), psum(ssq, axis)
+        ssum, ssq = mega_graph.psum(ssum, axis), mega_graph.psum(ssq, axis)
         k3f, const, mean, var = tail_algebra(
             ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps
         )
@@ -973,7 +1016,8 @@ class AssignTailTrainChunkedLin(torch.autograd.Function):
             dconst += torch.sum(dl32, dim=(0, 1))
         dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
             (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
-            dk3f, dconst, psum(dk3f, ctx.axis), psum(dconst, ctx.axis),
+            dk3f, dconst, mega_graph.psum(dk3f, ctx.axis),
+            mega_graph.psum(dconst, ctx.axis),
         )
 
         # ---- phase B: the row gradients; dp exists per chunk only ----

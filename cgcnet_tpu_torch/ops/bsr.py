@@ -232,6 +232,8 @@ def bsr_build_blocks(
         )
     if nbr.device.type == "cpu":
         return bsr_build_blocks_plain(nbr, w, blk_cols, blk_mask, dtype)
+    if torch.compiler.is_compiling():
+        return bsr_build_blocks_op(nbr, w, blk_cols, blk_mask, dtype)
     if dtype not in _cuda.VALS_CODES:
         raise ValueError(f"bsr_build_blocks: unsupported dtype {dtype}")
     r, m = blk_cols.shape[1], blk_cols.shape[2]
@@ -253,6 +255,23 @@ def bsr_build_blocks(
 
 
 bsr_build_blocks.launches = 0
+
+
+@torch.library.custom_op("cgcnet_tpu_torch::bsr_build_blocks", mutates_args=())
+def bsr_build_blocks_op(
+    nbr: torch.Tensor, w: torch.Tensor, blk_cols: torch.Tensor,
+    blk_mask: torch.Tensor, dtype: torch.dtype,
+) -> torch.Tensor:
+    """B1 as ``torch.ops.cgcnet_tpu_torch.bsr_build_blocks``: what a traced
+    program (``torch.export``) records where the wrapper meets a CUDA
+    tensor; running it calls the wrapper, which launches the kernel."""
+    return bsr_build_blocks(nbr, w, blk_cols, blk_mask, dtype)
+
+
+@bsr_build_blocks_op.register_fake
+def _(nbr, w, blk_cols, blk_mask, dtype):
+    b, r, m = blk_cols.shape
+    return nbr.new_empty((b, r, m, TILE, TILE), dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +339,8 @@ def bsr_matmul(
     _check_vals_dtype("bsr_matmul", vals, x)
     if x.device.type == "cpu":
         return bsr_matmul_plain(vals, blk_cols, x, live_slots)
+    if torch.compiler.is_compiling():
+        return bsr_matmul_op(vals, blk_cols, x, live_slots)
     if x.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"bsr_matmul: unsupported dtype {x.dtype}")
     nc, f = x.shape[1], x.shape[2]
@@ -340,6 +361,22 @@ def bsr_matmul(
 
 
 bsr_matmul.launches = 0
+
+
+@torch.library.custom_op("cgcnet_tpu_torch::bsr_matmul", mutates_args=())
+def bsr_matmul_op(
+    vals: torch.Tensor, blk_cols: torch.Tensor, x: torch.Tensor,
+    live_slots: torch.Tensor,
+) -> torch.Tensor:
+    """B2 as ``torch.ops.cgcnet_tpu_torch.bsr_matmul`` (see
+    :func:`bsr_build_blocks_op`)."""
+    return bsr_matmul(vals, blk_cols, x, live_slots)
+
+
+@bsr_matmul_op.register_fake
+def _(vals, blk_cols, x, live_slots):
+    b, r, _ = blk_cols.shape
+    return x.new_empty((b, r * TILE, x.shape[2]))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,12 @@ Port of ``cgcnet_tpu/train/loop.py``:
   including the ``> best - 1e-7`` tie-forgiveness);
 - evaluation with test-time multi-sampling: ``test_epoch`` resamplings of
   each patch's graph, logits summed before argmax (train.py:27-36,83-88);
-- metrics stream to JSONL with the JAX package's record kinds and keys.
+- metrics stream to JSONL with the JAX package's record kinds and keys
+  (mirrored to TensorBoard with ``train.tensorboard``);
+- ``train.profile`` traces the first epoch with ``torch.profiler``,
+  ``train.debug_nans`` stops at the first non-finite loss or gradient, and
+  ``evaluate(visualize_dir=)`` writes each patch's composed DiffPool
+  clusters as GEXF.
 """
 
 from __future__ import annotations
@@ -35,13 +40,18 @@ from cgcnet_tpu_torch.train.checkpoint import (
 )
 from cgcnet_tpu_torch.train.metrics import ImageLevelMetric
 from cgcnet_tpu_torch.train.state import TrainState
+from cgcnet_tpu_torch.utils.profiling import (
+    assert_finite,
+    enable_debug_checks,
+    trace_context,
+)
 
-UTILS_SLICE = "not ported yet (utils, remaining entry points and host code)"
 
-
-def make_train_step():
+def make_train_step(debug_nans: bool = False):
     """``train_step(state, graph) -> metrics``: one optimizer step on
-    ``graph``; ``metrics`` holds device scalars (loss, acc, edges)."""
+    ``graph``; ``metrics`` holds device scalars (loss, acc, edges).
+    ``debug_nans``: before the optimizer step, raise naming the loss or the
+    first parameter whose gradient is not finite (one host sync a step)."""
 
     def train_step(state: TrainState, graph: CellGraph) -> dict:
         model = state.model.train()
@@ -49,6 +59,10 @@ def make_train_step():
         logits = model(graph, generator=state.generator)
         loss = cross_entropy_loss(logits, graph.y)
         loss.backward()
+        if debug_nans:
+            assert_finite({"loss": loss, **{
+                f"gradient of {n}": p.grad
+                for n, p in model.named_parameters()}})
         state.optimizer.step()
         state.step += 1
         return {
@@ -78,6 +92,7 @@ def evaluate(
     *,
     test_time: int = 1,
     visualize_dir: str | Path | None = None,
+    visualize_max: int = 50,
     vote_per_repeat: bool = True,
     max_num_examples: int | None = None,
 ) -> dict[str, float]:
@@ -87,10 +102,14 @@ def evaluate(
     reference does (train.py:32-57); False votes once on the summed logits.
     Patch accuracy always uses the summed logits (train.py:83-90).
     ``max_num_examples``: per-repeat truncation after ceil(max/batch)
-    batches (train.py:60-62)."""
-    if visualize_dir is not None:
-        raise NotImplementedError(f"visualize_dir: {UTILS_SLICE}")
+    batches (train.py:60-62).
+
+    ``visualize_dir``: one GEXF file per patch, for the first
+    ``visualize_max`` patches of the first repeat, with the composed
+    DiffPool cluster ids (reference --visualization, train.py:64-76); the
+    last two feature columns are the normalized centroid coordinates."""
     eval_step = make_eval_step()
+    visualized = 0
     logit_sum: dict[int, np.ndarray] = {}
     labels: dict[int, int] = {}
     metric = ImageLevelMetric()
@@ -111,7 +130,14 @@ def evaluate(
         # before the previous batch's logits are copied back
         pending = None
         for batch_idx, graph in enumerate(loader.epoch(rep)):
-            cur = (eval_step(state, graph), graph.y, graph.patch_idx)
+            if visualize_dir is not None and rep == 0 \
+                    and visualized < visualize_max:
+                logits, visualized = _visualize(
+                    state, graph, names, Path(visualize_dir),
+                    visualize_max - visualized, visualized)
+                cur = (logits, graph.y, graph.patch_idx)
+            else:
+                cur = (eval_step(state, graph), graph.y, graph.patch_idx)
             if pending is not None:
                 account(pending)
             pending = cur
@@ -136,6 +162,43 @@ def evaluate(
     return out
 
 
+def _visualize(state, graph, names, out_dir: Path, budget: int, done: int):
+    """The eval forward with the assignments collected; GEXF files of up to
+    ``budget`` of the batch's patches. Returns (logits, patches written so
+    far)."""
+    from cgcnet_tpu_torch.utils.gexf import assignments_to_gexf
+
+    model = state.model.eval()
+    with torch.no_grad():
+        logits, assigns = model(graph, collect_assign=True)
+    x = graph.x[..., -2:].cpu().numpy()
+    nbr, nbr_mask = graph.nbr.cpu().numpy(), graph.nbr_mask.cpu().numpy()
+    assigns = [a.float().cpu().numpy() for a in assigns]
+    for i in range(min(budget, x.shape[0])):
+        name = names[int(graph.patch_idx[i])]
+        assignments_to_gexf(
+            x[i], nbr[i], nbr_mask[i], [a[i] for a in assigns],
+            out_dir / (name.replace("/", "_") + ".gexf"),
+            n_nodes=int(graph.n_nodes[i]),
+        )
+        done += 1
+    return logits, done
+
+
+def summary_writer(log_dir: Path):
+    """``torch.utils.tensorboard.SummaryWriter`` on ``log_dir``; raises an
+    ImportError naming the ``tensorboard`` package where it is missing."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError(
+            "train.tensorboard=true needs the `tensorboard` package "
+            "(torch.utils.tensorboard writes through it), which is not "
+            f"installed: {e}"
+        ) from e
+    return SummaryWriter(str(log_dir))
+
+
 class Trainer:
     def __init__(
         self,
@@ -145,24 +208,32 @@ class Trainer:
         val_loader: Optional[GraphLoader] = None,
         start_epoch: int = 0,
     ):
-        for key in ("profile", "tensorboard", "debug_nans"):
-            if getattr(cfg.train, key):
-                raise NotImplementedError(f"train.{key}: {UTILS_SLICE}")
         self.cfg = cfg
         self.state = state
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.start_epoch = start_epoch
-        self._train_step = make_train_step()
+        self._train_step = make_train_step(cfg.train.debug_nans)
         self.run_dir = Path(cfg.train.ckpt_dir) / cfg.run_id()
         self.run_dir.mkdir(parents=True, exist_ok=True)
         (self.run_dir / "config.json").write_text(cfg.to_json())
         self.log_path = self.run_dir / "metrics.jsonl"
         self.best = {"img_acc": 0.0, "patch_acc": 0.0, "epoch": -1}
+        # the reference logs through tensorboardX (train.py:225-235); here
+        # the JSONL stream is mirrored into TensorBoard event files
+        self._tb = (summary_writer(self.run_dir / "tb")
+                    if cfg.train.tensorboard else None)
 
     def _log(self, record: dict) -> None:
         with self.log_path.open("a") as f:
             f.write(json.dumps(record) + "\n")
+        if self._tb is not None:
+            step = record.get("epoch", 0)
+            kind = record.get("kind", "")
+            for key, val in record.items():
+                if isinstance(val, (int, float)) and key not in ("epoch", "batch"):
+                    self._tb.add_scalar(f"{kind}/{key}", float(val), step)
+            self._tb.flush()
 
     def _maybe_validate(self, epoch: int) -> None:
         if self.val_loader is None:
@@ -188,8 +259,15 @@ class Trainer:
             )
 
     def train(self) -> dict:
-        for epoch in range(self.start_epoch, self.cfg.train.num_epochs):
-            self._run_epoch(epoch)
+        cfg = self.cfg.train
+        for epoch in range(self.start_epoch, cfg.num_epochs):
+            profile_dir = (
+                self.run_dir / "profile"
+                if cfg.profile and epoch == self.start_epoch else None
+            )
+            with trace_context(profile_dir), \
+                    enable_debug_checks(cfg.debug_nans):
+                self._run_epoch(epoch)
         return self.best
 
     def _run_epoch(self, epoch: int) -> None:

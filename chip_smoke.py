@@ -99,7 +99,31 @@ Phases, each fatal on failure (exit code != 0):
    after each step every rank's parameters, Adam state and running
    statistics equal to rank 0's); CUDA-event times of the forward and the
    steps beside the card's name and power limit — a correctness run of
-   one card, not a multi-card figure. A rank's failure fails the run.
+   one card, not a multi-card figure. A rank's failure fails the run;
+12. the remaining entry points, on phase 4's data and checkpoints: (a)
+   ``cli.export`` on the card — the kernel artifact, reloaded, forwards the
+   canonical batch through ``torch.ops.cgcnet_tpu_torch.*`` (B1/B2/B4 =
+   1/4/1, logits within B4's f32 ``TOL`` of the eager model's), the same
+   for a ``--symbolic-batch`` artifact at batch 2 and 4 and for GIN's (B6),
+   the reloaded and the eager forward's CUDA-event times, and the portable
+   (``--cpu``) artifact on the CPU against the card at
+   ``LOGIT_ATOL``/``LOGIT_RTOL``; (b) ``evaluate(visualize_dir=)``: one
+   GEXF per patch up to ``VIS_MAX``, each parsed back (nodes, edges, the
+   composed argmax of the forward's S1 and S2); (c) one epoch of
+   ``train.loop`` with ``data.dynamic_buckets=true`` on patches spanning at
+   least two buckets (``TRAIN_PER_STEP`` at each, finite loss, one step's
+   loss and gradients against the CPU by ``grad_hold``); (d)
+   ``cli.preprocess fixed``, then the ``use_fixed`` batches equal to the
+   online ones bit for bit, and one train step with
+   ``graph_sampler=random`` (ELL width 2K+1) held as in (c); (e)
+   ``cli.crossval`` (three one-epoch folds, finite, their mean), one
+   ``cli.train`` epoch with ``train.profile=true`` whose trace holds B1-B5's
+   kernels (``PROFILE_KERNELS``), and a ``train.debug_nans`` step that
+   passes on clean input and raises on a planted NaN; (f) ``cli.preprocess
+   features`` on numpy tiles, on scipy's branch (the module's ``cv2`` set
+   to None) and on OpenCV's where it is installed, the scipy protos loaded
+   by ``NucleiGraphDataset``, with the seconds per tile. Its launch counts
+   are the paths ``ENTRY_PATHS``.
 
 The statistics hold runs after the step holds of phases 9 and 10 that
 rest on it (it reads inputs those phases capture): a run whose statistics
@@ -227,7 +251,11 @@ TOL.update({
     ("B9a", "float32"): 1e-5, ("B9a", "bfloat16"): 2.0 ** -6,
     ("B9b", "float32"): 1e-5, ("B9b", "bfloat16"): 2.0 ** -6,
 })
-PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest")
+# phase 12's paths (the remaining entry points), on the patch kernels
+ENTRY_PATHS = ("export", "gin_export", "visualize", "buckets", "random",
+               "crossval", "profile")
+PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest",
+               *ENTRY_PATHS)
 SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity",
                "slide_shards")
 # phase 11: the slide over SHARDS ranks sharing the one card over gloo
@@ -236,6 +264,19 @@ SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity",
 SHARDS = 4
 SHARD_STEPS = 2
 SHARD_TIMEOUT_S = 600
+# phase 12: synthetic patches of 1500..6000 nuclei sampled at 0.5 (750..3000
+# rows) spread over the dynamic buckets of 1024, 2048 and 4096 rows; GEXF
+# files of the first VIS_MAX patches; TILE_COUNT preprocess tiles of
+# TILE_PIXELS^2 px with a nucleus every TILE_STEP px; the kernels of B1-B5
+# whose names the profiler's trace must hold (f32)
+BUCKET_NODES = (1500, 6000)
+VIS_MAX = 6
+TILE_COUNT, TILE_PIXELS, TILE_STEP = 6, 1024, 24
+PROFILE_KERNELS = {"B1": ("build_blocks_kernel",),
+                   "B2": ("bsr_matmul_f32_kernel",),
+                   "B3": ("stats_kernel",),
+                   "B4": ("gemm_kernel", "rnorm_kernel"),
+                   "B5": ("tail_bwd_kernel", "tail_bwd_staged_kernel")}
 
 
 def log(msg: str) -> None:
@@ -2419,6 +2460,8 @@ def slice_phase(tmp: Path, device) -> dict:
     torch.cuda.empty_cache()
     shards = shards_phase(tmp, device, tmp / "model_SAGE.pt")
     paths.update(shards.pop("paths"))
+    entry_points = entry_phase(tmp, device, overrides, cfg)
+    paths.update(entry_points.pop("paths"))
     for entry in kernels:
         key = entry.pop("key")
         by_path = {name: paths[name][key] for name in entry.pop("paths")}
@@ -2426,7 +2469,8 @@ def slice_phase(tmp: Path, device) -> dict:
         entry["launches_by_path"] = by_path
         if by_path and entry["launches"] == 0:
             raise SystemExit(f"{entry['name']}: no launch on any path")
-    return {**slide, **shards, "kernels": kernels, "stats_hold": stats,
+    return {**slide, **shards, **entry_points, "kernels": kernels,
+            "stats_hold": stats,
             "forward_ms_per_batch": fwd_ms,
             "predict_wall_s": wall, "train_step_ms": train["step_ms"],
             "train_steps": train["steps"], "train_cli_wall_s": train["cli_wall_s"],
@@ -2434,6 +2478,416 @@ def slice_phase(tmp: Path, device) -> dict:
             "gin_train_step_ms": gin_train["step_ms"],
             "gin_train_steps": gin_train["steps"],
             "gin_train_cli_wall_s": gin_train["cli_wall_s"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the remaining entry points and host code
+# ---------------------------------------------------------------------------
+
+def _sub_batch(graph, b: int):
+    """The first ``b`` graphs of a batch."""
+    import dataclasses
+
+    return dataclasses.replace(graph, **{
+        f.name: getattr(graph, f.name)[:b] for f in dataclasses.fields(graph)
+        if getattr(graph, f.name) is not None})
+
+
+def _add(into: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        into[k] += v
+
+
+def _numpy_batch(graph) -> dict:
+    import dataclasses
+
+    return {f.name: getattr(graph, f.name).cpu().numpy()
+            for f in dataclasses.fields(graph)
+            if getattr(graph, f.name) is not None}
+
+
+def check_gexf(path: Path, graph, i: int, s1, s2) -> None:
+    """Parse one patch's GEXF back with xml.etree: its nodes are the
+    patch's n_nodes, its edges the graph's undirected edges without self
+    loops, and each node's cluster ids the argmax of the composed S that the
+    forward returned (``s1`` [N, C1], ``s2`` [C1, C2])."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    ns = {"g": "http://www.gexf.net/1.2draft"}
+    root = ET.parse(path).getroot()
+    titles = {a.get("id"): a.get("title")
+              for a in root.findall(".//g:attributes/g:attribute", ns)}
+    n = int(graph.n_nodes[i])
+    nbr = graph.nbr[i, :n].cpu().numpy()
+    mask = graph.nbr_mask[i, :n].cpu().numpy()
+    rows = np.repeat(np.arange(n), nbr.shape[1]).reshape(nbr.shape)
+    keep = (mask > 0) & (nbr != rows)
+    want = {(min(a, b), max(a, b)) for a, b in zip(rows[keep], nbr[keep])}
+    got = {(min(int(e.get("source")), int(e.get("target"))),
+            max(int(e.get("source")), int(e.get("target"))))
+           for e in root.findall(".//g:edges/g:edge", ns)}
+    edges = root.findall(".//g:edges/g:edge", ns)
+    a1 = s1[:n].float().cpu().numpy().argmax(1)
+    a2 = s2.float().cpu().numpy().argmax(1)[a1]
+    ids = {"assign_1": a1, "assign_2": a2}
+    nodes = root.findall(".//g:nodes/g:node", ns)
+    bad = [path.name for cond in (
+        len(nodes) == n, len(edges) == len(got) == len(want), got == want)
+        if not cond]
+    for node in nodes:
+        k = int(node.get("id"))
+        for v in node.findall(".//g:attvalue", ns):
+            t = titles[v.get("for")]
+            if t in ids and int(v.get("value")) != int(ids[t][k]):
+                bad.append(f"node {k} {t}")
+    if bad:
+        raise SystemExit(f"phase 12: GEXF {path.name} disagrees: {bad[:5]} "
+                         f"({len(nodes)} nodes for {n}, {len(edges)} edges "
+                         f"for {len(want)})")
+
+
+def make_tiles(root: Path, size: int = TILE_PIXELS) -> int:
+    """Instance masks and .npy grayscale images of TILE_COUNT tiles in the
+    reference layout (<fold>/<grade_dir>/<name>.npy), nuclei on a jittered
+    grid; returns the tile count."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    y, x = np.ogrid[:size, :size]
+    count = 0
+    for fold in ("fold_1", "fold_2", "fold_3"):
+        for gdir in ("1_normal", "3_high_grade")[:TILE_COUNT // 3]:
+            mask = np.zeros((size, size), np.int32)
+            gray = rng.integers(90, 140, (size, size)).astype(np.uint8)
+            lab = 1
+            for cy in range(12, size - 12, TILE_STEP):
+                for cx in range(12, size - 12, TILE_STEP):
+                    jy, jx = rng.integers(-4, 5, 2)
+                    ry, rx = rng.uniform(4, 8, 2)
+                    disk = (((y - cy - jy) / ry) ** 2
+                            + ((x - cx - jx) / rx) ** 2) <= 1
+                    mask[disk] = lab
+                    gray[disk] = rng.integers(20, 80, int(disk.sum()))
+                    lab += 1
+            for kind, arr in (("masks", mask), ("images", gray)):
+                d = root / kind / fold / gdir
+                d.mkdir(parents=True, exist_ok=True)
+                np.save(d / "tile0_grade_1_0.npy", arr)
+            count += 1
+    return count
+
+
+def entry_phase(tmp: Path, device, overrides, cfg) -> dict:
+    """Phase 12 (see the module docstring). Returns the launch counts of its
+    paths and its numbers."""
+    import numpy as np
+    import torch
+    from cgcnet_tpu_torch.cli import crossval
+    from cgcnet_tpu_torch.cli import export as export_cli
+    from cgcnet_tpu_torch.cli import predict
+    from cgcnet_tpu_torch.cli import preprocess
+    from cgcnet_tpu_torch.cli import train as train_cli
+    from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
+    from cgcnet_tpu_torch.dataflow.loader import GraphLoader
+    from cgcnet_tpu_torch.dataflow.synthetic import generate_dataset
+    from cgcnet_tpu_torch.preprocess import features
+    from cgcnet_tpu_torch.train.checkpoint import load_checkpoint
+    from cgcnet_tpu_torch.train.loop import evaluate, make_train_step
+    from cgcnet_tpu_torch.train.state import create_train_state
+    from cgcnet_tpu_torch.utils.export_model import load_exported
+    from cgcnet_tpu_torch.utils.profiling import TRACE_NAME, enable_debug_checks
+
+    log("phase 12: the remaining entry points (export, visualize, dynamic "
+        "buckets, random sampler, fixed epochs, crossval, profile, "
+        "debug_nans, preprocess)")
+    import importlib.util
+
+    t_phase = time.time()
+    log("  optional packages here: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in ("networkx", "cv2", "tensorboard")))
+    paths = {p: expected({}) for p in ENTRY_PATHS}
+    cpu_flag = ["--cpu"] if device.type == "cpu" else []
+    valid = NucleiGraphDataset(cfg.data, "valid")
+    loader = GraphLoader(valid, cfg.data.batch_size, device=device,
+                         shuffle=False, num_workers=4)
+    graph = next(iter(loader.epoch(0)))
+
+    # ---- (a) the kernel artifacts and the portable one ----
+    def artifact(name, ckpt, over, extra=()):
+        out = tmp / f"{name}.cgexp"
+        t0 = time.time()
+        res = export_cli.main([*cpu_flag, "--ckpt", str(ckpt), "-o", str(out),
+                               *extra, *over])
+        t1 = time.time()
+        fwd, header = load_exported(out)
+        log(f"  artifact {name}: export {t1 - t0:.1f} s, load "
+            f"{time.time() - t1:.1f} s, {res['bytes']} bytes, device "
+            f"{header['device']}, ops {header['custom_ops']}")
+        return fwd
+
+    def held(fwd, g, model, per, path, what):
+        with torch.no_grad():
+            want = model(g)
+        zero_counts()
+        got = fwd(g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected(per):
+            raise SystemExit(f"phase 12 {what}: launches {counts} != {per}")
+        _add(paths[path], counts)
+        err = (got - want).abs().max().item()
+        tol = TOL[("B4", "float32")] * want.abs().max().item()
+        log(f"  {what}, batch {g.x.shape[0]}: launches {per}, max abs diff "
+            f"to the eager model {err:.3e} (tol {tol:.3e})")
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise SystemExit(f"phase 12 {what}: logits out of tolerance")
+        return got
+
+    sd = load_checkpoint(tmp / "model_SAGE.pt")[0]
+    model = predict.build_model(cfg, sd, device)
+    fwd = artifact("sage", tmp / "model_SAGE.pt", overrides,
+                   ["--batch", str(CANONICAL["B"])])
+    card = held(fwd, graph, model, SERVE_PER_BATCH, "export",
+                "kernel artifact (SAGE)")
+    export_ms = time_ms(lambda: fwd(graph), reps=10)
+    with torch.no_grad():
+        eager_ms = time_ms(lambda: model(graph), reps=10)
+    log(f"  forward per batch: reloaded kernel artifact {export_ms:.3f} ms, "
+        f"eager {eager_ms:.3f} ms (median of 10, CUDA events)")
+    sym = artifact("sage_symbolic", tmp / "model_SAGE.pt", overrides,
+                   ["--symbolic-batch"])
+    for b in (2, CANONICAL["B"]):
+        held(sym, _sub_batch(graph, b), model, SERVE_PER_BATCH, "export",
+             "symbolic-batch kernel artifact (SAGE)")
+    gin_over = [*overrides, "model.gcn_name=GIN"]
+    gin_cfg = cfg.apply_overrides(["model.gcn_name=GIN"])
+    gin_model = predict.build_model(
+        gin_cfg, load_checkpoint(tmp / "model_GIN.pt")[0], device)
+    held(artifact("gin", tmp / "model_GIN.pt", gin_over), graph, gin_model,
+         GIN_SERVE_PER_BATCH, "gin_export", "kernel artifact (GIN)")
+    del gin_model
+    out = tmp / "portable.cgexp"
+    export_cli.main(["--cpu", "--ckpt", str(tmp / "model_SAGE.pt"), "-o",
+                     str(out), *overrides])
+    portable, header = load_exported(out)
+    t0 = time.time()
+    cpu_logits = portable(graph.to("cpu")).numpy()
+    card_logits = card.cpu().numpy()
+    err = float(np.abs(card_logits - cpu_logits).max())
+    log(f"  portable artifact on the CPU ({header['fields']}, ops "
+        f"{header['custom_ops']}): {time.time() - t0:.1f} s, max abs diff to "
+        f"the card's kernel artifact {err:.3e} (atol {LOGIT_ATOL}, rtol "
+        f"{LOGIT_RTOL})")
+    if header["custom_ops"] or not np.allclose(
+            cpu_logits, card_logits, atol=LOGIT_ATOL, rtol=LOGIT_RTOL):
+        raise SystemExit("phase 12: portable artifact out of tolerance")
+
+    # ---- (b) visualize ----
+    state = create_train_state(cfg, device, seed=1234)
+    state.model.load_state_dict(sd)
+    viz = tmp / "viz"
+    zero_counts()
+    result = evaluate(state, loader, visualize_dir=viz, visualize_max=VIS_MAX)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_batches = loader.batches_per_epoch()
+    if counts != expected(SERVE_PER_BATCH, n_batches):
+        raise SystemExit(f"phase 12 visualize: launches {counts} != "
+                         f"{SERVE_PER_BATCH} x {n_batches}")
+    _add(paths["visualize"], counts)
+    files = sorted(viz.glob("*.gexf"))
+    if len(files) != min(VIS_MAX, len(valid)):
+        raise SystemExit(f"phase 12 visualize: {len(files)} GEXF files")
+    checked = 0
+    for g in loader.epoch(0):
+        with torch.no_grad():
+            _, (s1, s2) = state.model.eval()(g, collect_assign=True)
+        for i in range(g.x.shape[0]):
+            if checked < VIS_MAX:
+                name = valid.names[int(g.patch_idx[i])]
+                check_gexf(viz / (name.replace("/", "_") + ".gexf"), g, i,
+                           s1[i], s2[i])
+                checked += 1
+    log(f"  evaluate(visualize_dir=): {result}; {len(files)} GEXF files, "
+        f"each parsed back: nodes, edges and composed cluster ids as the "
+        f"forward's S; launches {counts}")
+    del state
+
+    # ---- (c) dynamic buckets ----
+    broot = tmp / "bucket_data"
+    generate_dataset(str(broot), patches_per_image=2, images_per_grade=2,
+                     n_nodes=BUCKET_NODES, seed=1)
+    bover = [f"data.root={broot}", "data.num_workers=4",
+             f"data.max_num_nodes={DATA_NODES[1]}"]
+    bcfg = predict.serving_config([*bover, "data.dynamic_buckets=true"])
+    state = create_train_state(bcfg, device)
+    bloader = GraphLoader(
+        NucleiGraphDataset(bcfg.data, "train"), bcfg.data.batch_size,
+        device=device, shuffle=True, num_workers=4, seed=bcfg.data.seed,
+        drop_last=True, dynamic_buckets=True)
+    step_fn = make_train_step()
+    caps, losses, small = [], [], None
+    for g in bloader.epoch(0):
+        zero_counts()
+        metrics = step_fn(state, g)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected(TRAIN_PER_STEP):
+            raise SystemExit(f"phase 12 buckets: launches {counts} != "
+                             f"{TRAIN_PER_STEP} at capacity {g.capacity}")
+        _add(paths["buckets"], counts)
+        caps.append(g.capacity)
+        losses.append(float(metrics["loss"]))
+        if small is None or g.capacity < small.capacity:
+            small = g
+    log(f"  dynamic buckets: {len(caps)} steps at capacities {caps}, "
+        f"launches per step {TRAIN_PER_STEP}, losses "
+        f"{[round(v, 4) for v in losses]}")
+    if len(set(caps)) < 2 or not np.isfinite(losses).all():
+        raise SystemExit("phase 12 buckets: fewer than two capacities or a "
+                         "loss not finite")
+    grad_hold(bcfg, device, small, witnessed=False)
+    del state
+
+    # ---- (d) the fixed-epoch replay and the random sampler ----
+    if preprocess.main(["fixed", "--root", str(broot), "--epochs", "1",
+                        "--processes", "1", *bover[1:]]) != 0:
+        raise SystemExit("phase 12: cli.preprocess fixed failed")
+    fcfg = predict.serving_config(
+        [*bover, "data.use_fixed=true", "data.num_fixed_epochs=1"])
+    ocfg = predict.serving_config(bover)
+    # one worker each: the grow-only BSR slot caps then see the batches in
+    # the same order, so the block metadata's widths agree too
+    replay, online = (
+        GraphLoader(NucleiGraphDataset(c.data, "train"), c.data.batch_size,
+                    device="cpu", shuffle=True, seed=c.data.seed,
+                    num_workers=1, drop_last=True).epoch(0)
+        for c in (fcfg, ocfg))
+    for a, b in zip(replay, online):
+        a, b = _numpy_batch(a), _numpy_batch(b)
+        differ = [k for k in a.keys() | b.keys() if k not in a or k not in b
+                  or a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+        if differ:
+            raise SystemExit("phase 12: the use_fixed batch differs from the "
+                             f"online batch in {sorted(differ)}")
+    log("  cli.preprocess fixed, then data.use_fixed=true: every training "
+        "batch of epoch 0 equals the online batch bit for bit")
+    rcfg = predict.serving_config([*bover, "data.graph_sampler=random"])
+    t0 = time.time()
+    rg = next(iter(GraphLoader(
+        NucleiGraphDataset(rcfg.data, "train"), rcfg.data.batch_size,
+        device=device, shuffle=False, num_workers=4).epoch(0)))
+    build_s = time.time() - t0
+    state = create_train_state(rcfg, device)
+    zero_counts()
+    loss = float(make_train_step()(state, rg)["loss"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  graph_sampler=random: ELL width {rg.nbr.shape[-1]}, batch "
+        f"{tuple(rg.x.shape)} built in {build_s:.1f} s, train-step loss "
+        f"{loss:.6f}, launches {counts}")
+    if counts != expected(TRAIN_PER_STEP) or not np.isfinite(loss) or \
+            rg.nbr.shape[-1] != 2 * rcfg.data.max_neighbours + 1:
+        raise SystemExit("phase 12 random sampler: launches, loss or width")
+    _add(paths["random"], counts)
+    grad_hold(rcfg, device, rg, witnessed=False)
+    del state, rg
+
+    # ---- (e) crossval, the profiler, debug_nans ----
+    zero_counts()
+    t0 = time.time()
+    cv = crossval.main([*cpu_flag, *bover, "train.num_epochs=1",
+                        "train.test_epoch=1", "train.eval_every_batches=0",
+                        f"train.ckpt_dir={tmp / 'cv_runs'}"])
+    torch.cuda.synchronize()
+    cv_s = time.time() - t0
+    counts = read_counts()
+    _add(paths["crossval"], counts)
+    folds = [cv["folds"][f] for f in (1, 2, 3)]
+    log(f"  crossval: {cv_s:.1f} s, mean {cv['mean']}, launches {counts}")
+    for key, mean in cv["mean"].items():
+        vals = [f[key] for f in folds]
+        if not (np.isfinite(vals).all()
+                and abs(mean - float(np.mean(vals))) <= 1e-12):
+            raise SystemExit(f"phase 12 crossval: {key} {vals} -> {mean}")
+    if any(counts[k] == 0 for k in TRAIN_PER_STEP):
+        raise SystemExit(f"phase 12 crossval: a kernel of {TRAIN_PER_STEP} "
+                         f"never launched: {counts}")
+    zero_counts()
+    result = train_cli.main([*cpu_flag, *bover, "train.num_epochs=1",
+                             "train.profile=true", "train.test_epoch=1",
+                             f"train.ckpt_dir={tmp / 'profile_runs'}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _add(paths["profile"], counts)
+    trace = (Path(result["run_dir"]) / "profile" / TRACE_NAME).read_text()
+    missing = {k: names for k, names in PROFILE_KERNELS.items()
+               if not any(n in trace for n in names)}
+    log(f"  train.profile: {len(trace) / 1e6:.1f} MB Chrome trace; kernels "
+        f"of B1-B5 in it: {sorted(set(PROFILE_KERNELS) - set(missing))}; "
+        f"launches {counts}")
+    if missing:
+        raise SystemExit(f"phase 12 profile: no kernel of {missing} in the trace")
+    state = create_train_state(bcfg, device)
+    step_fn = make_train_step(debug_nans=True)
+    with enable_debug_checks(True):
+        zero_counts()
+        loss = float(step_fn(state, small)["loss"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        import dataclasses
+
+        bad = small.x.clone()
+        bad[0, 1, 3] = float("nan")
+        try:
+            step_fn(state, dataclasses.replace(small, x=bad))
+            raised = None
+        except (FloatingPointError, RuntimeError) as e:
+            raised = str(e).splitlines()[0]
+    log(f"  train.debug_nans: clean step loss {loss:.6f} (launches {counts}); "
+        f"planted NaN: {raised}")
+    if counts != expected(TRAIN_PER_STEP) or not np.isfinite(loss) or not raised:
+        raise SystemExit("phase 12 debug_nans: the clean step failed or the "
+                         "planted NaN passed")
+    _add(paths["profile"], counts)
+    del state
+
+    # ---- (f) preprocess: scipy's branch, and OpenCV's where installed ----
+    tiles = make_tiles(tmp / "tiles")
+    cv2, per_tile = features.cv2, {}
+    for branch in ("scipy", "OpenCV")[:2 if cv2 else 1]:
+        features.cv2 = cv2 if branch == "OpenCV" else None
+        t0 = time.time()
+        try:
+            rc = preprocess.main([
+                "features", "--masks", str(tmp / "tiles" / "masks"),
+                "--images", str(tmp / "tiles" / "images"),
+                "--out", str(tmp / f"tiles_{branch}"), "--processes", "1"])
+        finally:
+            features.cv2 = cv2
+        per_tile[branch] = (time.time() - t0) / tiles
+        if rc != 0:
+            raise SystemExit(f"phase 12: cli.preprocess features ({branch}) "
+                             "failed")
+    # the published normalization tables: scipy's geometry branch gives
+    # constant columns, whose own standard deviation is 0
+    tds = NucleiGraphDataset(predict.serving_config([
+        f"data.root={tmp / 'tiles_scipy'}", "data.max_num_nodes=2048"]).data,
+        "train", use_reference_stats=True)
+    sample = tds.get(0)
+    log(f"  cli.preprocess features: {tiles} tiles of {TILE_PIXELS}^2 px, "
+        f"seconds per tile {per_tile} (one process); {len(tds)} training "
+        f"protos of scipy's branch load, the first {sample.n_nodes} nodes")
+    if not (sample.n_nodes > 0 and np.isfinite(sample.x).all()):
+        raise SystemExit("phase 12: the preprocessed protos do not load")
+    wall = time.time() - t_phase
+    log(f"  phase 12 wall {wall:.1f} s; launches by path {paths}")
+    return {"paths": paths, "export_forward_ms": export_ms,
+            "eager_forward_ms": eager_ms,
+            "preprocess_s_per_tile": per_tile, "entry_wall_s": wall}
 
 
 # the kernels whose compiler report phase 2 must hold: the bf16

@@ -1297,3 +1297,56 @@ def test_graph_axis_two_ranks_one_card(device, tmp_path):
         assert torch.equal(res["psum_bf16"],
                            v[0].to(torch.bfloat16) + v[1].to(torch.bfloat16))
         assert torch.equal(res["all_gather"], v)
+
+
+@pytest.mark.parametrize("gcn,head", [("SAGE", "assign_head_softmax_pre"),
+                                      ("GIN", "assign_head_softmax")])
+def test_kernel_artifact_launches_kernels(device, tmp_path, gcn, head):
+    """The kernel artifact (utils/export_model.py) of a small model on a
+    loader batch: the program records B1, B2 and the head (B4 for SAGE, B6
+    for GIN) as custom ops, and its reloaded forward launches them 1/4/1
+    times a batch, at any batch size (symbolic batch) and block-slot count,
+    with the eager model's logits (f32, 1e-5 of max|logit|)."""
+    import dataclasses
+
+    from cgcnet_tpu_torch.cli.predict import serving_config
+    from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
+    from cgcnet_tpu_torch.dataflow.loader import GraphLoader
+    from cgcnet_tpu_torch.dataflow.synthetic import generate_dataset
+    from cgcnet_tpu_torch.nn.model import CGCNet
+    from cgcnet_tpu_torch.utils.export_model import (
+        export_forward, load_exported, save_exported)
+
+    generate_dataset(str(tmp_path / "data"), patches_per_image=2,
+                     images_per_grade=1, n_nodes=(300, 500), seed=2)
+    cfg = serving_config([
+        f"data.root={tmp_path / 'data'}", "data.max_num_nodes=500",
+        "data.num_workers=1", "model.hidden_dim=8", "model.embedding_dim=8",
+        "model.assign_hidden_dim=8", f"model.gcn_name={gcn}"])
+    loader = GraphLoader(NucleiGraphDataset(cfg.data, "valid"), 4,
+                         device=device, shuffle=False, num_workers=1)
+    graph = dataclasses.replace(next(iter(loader.epoch(0))), y=None,
+                                patch_idx=None)
+    model = CGCNet(cfg.model, torch.Generator().manual_seed(3)).to(device).eval()
+    program, header = export_forward(model, graph, symbolic_batch=True)
+    assert header["custom_ops"] == sorted(
+        f"cgcnet_tpu_torch.{n}.default"
+        for n in ("bsr_build_blocks", "bsr_matmul", head))
+    save_exported(program, header, tmp_path / "k.cgexp")
+    fwd, _ = load_exported(tmp_path / "k.cgexp")
+    wrappers = {"B1": bsr.bsr_build_blocks, "B2": bsr.bsr_matmul,
+                "B4": ah.assign_head_softmax_pre, "B6": ah.assign_head_softmax}
+    key = "B4" if gcn == "SAGE" else "B6"
+    for b in (4, 2):
+        g = dataclasses.replace(graph, **{
+            f.name: getattr(graph, f.name)[:b]
+            for f in dataclasses.fields(graph) if getattr(graph, f.name) is not None})
+        with torch.no_grad():
+            want = model(g)
+        for w in wrappers.values():
+            w.launches = 0
+        got = fwd(g)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        assert counts == {"B1": 1, "B2": 4, "B4": 0, "B6": 0, key: 1}, counts
+        _close(got, want, 1e-5)

@@ -221,15 +221,16 @@ def test_model_bf16_runs(slice_case, batch):
 
 def test_unported_paths_raise(slice_case, batch):
     """Every model option of the JAX package's patch path runs now (GIN,
-    GAT, the activations, bn=False, the unfolded tail, the gather path);
-    what stays unported is host code of the dataset, which raises, and a
-    name that no package knows is refused when the model is built."""
+    GAT, the activations, bn=False, the unfolded tail, the gather path), and
+    the dataset's fixed-epoch replay and random graph sampler too
+    (tests/test_torch_entrypoints.py); a name that no package knows is
+    refused: a graph sampler when the dataset is built, a model option when
+    the model is built."""
     from cgcnet_tpu_torch.config import DataConfig
     from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
 
-    for bad in ({"use_fixed": True}, {"graph_sampler": "random"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            NucleiGraphDataset(DataConfig(**bad))
+    with pytest.raises(ValueError, match="graph_sampler"):
+        NucleiGraphDataset(DataConfig(graph_sampler="delaunay"))
     for bad, what in (({"gcn_name": "GCN"}, "gcn_name"),
                       ({"activation": "tanh"}, "activation"),
                       ({"gcn_name": "GAT", "gat_heads": 3}, "heads")):
