@@ -11,6 +11,15 @@ sample's graph content of (seed, patch, epoch), whatever the thread
 scheduling. The one scheduling-dependent quantity is padding width: the
 grow-only sticky BSR caps mean a batch's block-slot count can differ from
 run to run (the extra slots are zero blocks; numerics are unaffected).
+
+Process-sharded mode (``rank``/``world``, one process per rank of a data
+axis): every rank computes the same epoch order from (seed, epoch) and
+builds only its rows ``b[r·per:(r+1)·per]`` of each global batch of
+``batch_size`` graphs, with the JAX loader's ``process_shard`` rules: the
+batch splits evenly, ``drop_last``, one fixed capacity, a transpose-width
+overflow raises instead of widening one rank's shapes, and the block
+metadata is neither quantized nor sticky (a function of the rank's rows
+alone).
 Port of ``cgcnet_tpu/dataflow/loader.py`` without the JAX wire packing.
 """
 
@@ -40,7 +49,8 @@ class GraphLoader:
     batch (training). ``dynamic_buckets`` pads each batch to 128 x the next
     power of two over its largest sampled graph instead of the dataset
     capacity (fewer padded rows for small batches, a bounded set of
-    shapes)."""
+    shapes). ``world`` > 1: the process-sharded mode of rank ``rank``
+    (module docstring); ``batch_size`` stays the global batch's."""
 
     def __init__(
         self,
@@ -53,6 +63,8 @@ class GraphLoader:
         drop_last: bool = False,
         seed: int = 0,
         dynamic_buckets: bool = False,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -60,18 +72,34 @@ class GraphLoader:
                 "GraphLoader: no CUDA device — pass device='cpu' to load for "
                 "the CPU"
             )
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of a world of {world}")
+        if world > 1:
+            if batch_size % world:
+                raise ValueError(f"process-sharded loading: batch_size "
+                                 f"{batch_size} does not split over {world} "
+                                 "ranks")
+            # a ragged final batch cannot be split evenly across ranks
+            if not drop_last:
+                raise ValueError("process-sharded loading requires drop_last")
+            # a bucket capacity computed from each rank's rows would diverge
+            if dynamic_buckets:
+                raise ValueError("process-sharded loading requires a fixed "
+                                 "node capacity (no dynamic buckets)")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         # 0 = auto: one worker per usable core (the CPU affinity set, not
-        # os.cpu_count()) — the native per-patch build is GIL-free
+        # os.cpu_count()) — the native per-patch build is GIL-free — shared
+        # by the ranks of a process-sharded run on one host
         if num_workers <= 0:
             try:
                 cores = len(os.sched_getaffinity(0))
             except AttributeError:  # non-Linux
                 cores = os.cpu_count() or 1
-            self.num_workers = max(1, cores)
+            self.num_workers = max(1, cores // world)
         else:
             self.num_workers = num_workers
         self.seed = seed
@@ -105,13 +133,14 @@ class GraphLoader:
         """Collated numpy batch (with BSR metadata) of dataset items
         ``idxs`` at ``epoch``."""
         ds = self.dataset
-        sticky = self._sticky_caps
+        sharded = self.world > 1
         if not ds.supports_fast_path():
             batch = collate([ds.get(int(i), epoch) for i in idxs], self.capacity, 0)
         else:
             batch = self._build_fast(idxs, epoch)
         if self.bsr_blocks > 0:
-            attach_bsr_meta(batch, self.bsr_blocks, True, sticky_caps=sticky)
+            attach_bsr_meta(batch, self.bsr_blocks, not sharded,
+                            sticky_caps=None if sharded else self._sticky_caps)
         return batch
 
     def _build_fast(self, idxs, epoch: int) -> dict[str, np.ndarray]:
@@ -139,6 +168,11 @@ class GraphLoader:
                 batch["nbr_t"][bi], batch["nbr_t_mask"][bi],
             )
             if n < 0:
+                if self.world > 1:
+                    raise RuntimeError(
+                        "transpose width overflow in process-sharded "
+                        "loading; raise dataset.transpose_width so every "
+                        "rank builds the same shapes")
                 # transpose width overflow: the numpy path widens this batch;
                 # widen the nominal width so later batches stay fast
                 ds.transpose_width = min(kt * 2, 1024)
@@ -159,6 +193,11 @@ class GraphLoader:
             order[i : i + self.batch_size]
             for i in range(0, len(order), self.batch_size)
         ]
+        if self.world > 1:
+            # only this rank's rows of each global batch
+            per = self.batch_size // self.world
+            batches = [b[self.rank * per:(self.rank + 1) * per]
+                       for b in batches]
         pin = self.device.type == "cuda"
 
         def task(idxs) -> CellGraph:

@@ -32,7 +32,9 @@ from cgcnet_tpu_torch.ops.assign_head import (
     AssignHeadSoftmax,
     AssignHeadSoftmaxPre,
     AssignTailTrain,
+    assign_tail_train_psum,
 )
+from cgcnet_tpu_torch.parallel.mega_graph import psum
 
 
 class GNNBlock(nn.Module):
@@ -40,7 +42,9 @@ class GNNBlock(nn.Module):
     outputs; ``use_lin`` (pooling blocks) maps the concat to
     ``embedding_dim``. ``masked_bn``: BN batch statistics over real rows
     only. ``fold_tail`` folds bn3's affine into that lin
-    (``finish_folded``); it needs ``use_lin`` and ``use_bn``."""
+    (``finish_folded``); it needs ``use_lin`` and ``use_bn``. Its BNs carry
+    the data axis the training statistics run over (``TorchBatchNorm.axis``),
+    the fused tails' included."""
 
     def __init__(
         self,
@@ -138,7 +142,11 @@ class GNNBlock(nn.Module):
         relu, the BN-folded lin and the masked softmax are one B4 launch; in
         training B3 computes bn3's batch statistics first and the backward
         is one B5 launch. Returns (S, S^T), S^T a view. relu's positive
-        homogeneity makes this exact: relu(l2norm(p)) == rnorm * relu(p)."""
+        homogeneity makes this exact: relu(l2norm(p)) == rnorm * relu(p).
+        Over a data axis of D > 1 ranks B3's sums and the row count are
+        summed over the axis (``assign_tail_train_psum``, the graph axis's
+        tail: rows split over ranks are the same algebra whichever axis
+        splits them)."""
         split = x1.shape[-1] + x2.shape[-1]
         k = self.lin.kernel()
         k12, k3 = k[:split], k[split:]
@@ -154,10 +162,18 @@ class GNNBlock(nn.Module):
                 torch.sum(n_nodes).float() if self.masked_bn
                 else torch.tensor(float(p.shape[0] * p.shape[1]), device=p.device)
             )
-            s, mean, var = AssignTailTrain.apply(
-                x12, p, k12, k3, lin_bias, self.bn3.weight, self.bn3.bias,
-                n_nodes, n, self.bn3.eps,
-            )
+            axis = self.bn3.axis
+            if axis is not None and axis.size > 1:
+                n = psum(n.reshape(1), axis)[0]
+                s, mean, var = assign_tail_train_psum(
+                    x12, p, k12, k3, lin_bias, self.bn3.weight,
+                    self.bn3.bias, n_nodes, n, self.bn3.eps, axis=axis,
+                )
+            else:
+                s, mean, var = AssignTailTrain.apply(
+                    x12, p, k12, k3, lin_bias, self.bn3.weight,
+                    self.bn3.bias, n_nodes, n, self.bn3.eps,
+                )
             self.bn3.update_running(mean, var, n)
             return s, s.transpose(1, 2)
         inv, shift = self.bn3.affine(self.bn3.running_mean, self.bn3.running_var)
@@ -330,7 +346,8 @@ def _dual_tail(
     h = activation(e_blk.act)(h)
     be, bp = e_blk.bn(i), p_blk.bn(i)
     if e_blk.training:
-        mean, var, n = batch_moments(h, mask if e_blk.masked_bn else None)
+        mean, var, n = batch_moments(h, mask if e_blk.masked_bn else None,
+                                     be.axis)
         be.update_running(mean[:f], var[:f], n)
         bp.update_running(mean[f:], var[f:], n)
     else:

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cgcnet_tpu_torch.nn.adjacency import Adjacency, DenseAdj, EllAdjFactored
+from cgcnet_tpu_torch.parallel.mega_graph import psum
+from cgcnet_tpu_torch.parallel.mesh import GraphAxis
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -208,11 +210,15 @@ def l2_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def batch_moments(
-    x: torch.Tensor, mask: Optional[torch.Tensor] = None
+    x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+    axis: Optional[GraphAxis] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean[C], biased var[C], n) of ``x`` [..., C] over its rows in f32,
     two-pass; with ``mask`` (row weights) over the masked rows, n clamped
-    to at least 1."""
+    to at least 1. Over a data ``axis`` of D > 1 ranks, over the rows of
+    every rank (:func:`axis_moments`)."""
+    if axis is not None and axis.size > 1:
+        return axis_moments(x, mask, axis)
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
     if mask is None:
@@ -226,6 +232,37 @@ def batch_moments(
     return mean, torch.sum(torch.square(xf - mean) * m, dim=axes) / n, n
 
 
+def axis_moments(
+    x: torch.Tensor, mask: Optional[torch.Tensor], axis: GraphAxis
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`batch_moments` over the rows of every rank of ``axis``, in the
+    same two passes: the row count and the column sums summed over the
+    axis (one psum), then the squared deviations from the global mean (a
+    second). The psums are differentiable (their VJP sums the cotangents
+    over the axis), so each rank's backward routes the global statistics'
+    cotangents onto its own rows."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    if mask is None:
+        m = None
+        n_local = torch.tensor(float(xf[..., 0].numel()), device=x.device)
+        col = torch.sum(xf, dim=axes)
+    else:
+        m = torch.broadcast_to(mask.float(), x.shape[:-1])
+        n_local = torch.sum(m)
+        m = m[..., None]
+        col = torch.sum(xf * m, dim=axes)
+    sums = psum(torch.cat([col, n_local[None]]), axis)
+    n = sums[-1].detach()
+    if m is not None:
+        n = torch.clamp_min(n, 1.0)
+    mean = sums[:-1] / n
+    dev = torch.square(xf - mean)
+    if m is not None:
+        dev = dev * m
+    return mean, psum(torch.sum(dev, dim=axes), axis) / n, n
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm1d with torch semantics over [..., C] rows: biased variance
     for normalizing, unbiased (by n/(n-1)) for the running update, momentum
@@ -236,9 +273,12 @@ class TorchBatchNorm(nn.Module):
     statistics run over every row, padded ones included (the reference's
     quirk). ``moments``/``affine`` expose the statistics without applying
     them, so a following linear can fold the affine into its kernel; in
-    training every caller of ``moments`` feeds them to ``update_running``."""
+    training every caller of ``moments`` feeds them to ``update_running``.
+    ``axis``: a data axis whose ranks' rows the batch statistics run over
+    (``CGCNet.set_data_axis``); None for this process's rows alone."""
 
     momentum = 0.1
+    axis: Optional[GraphAxis] = None
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -253,10 +293,11 @@ class TorchBatchNorm(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """(mean[C], var[C], n) that normalize ``x``: the running moments and
         n None in eval mode; in training the batch moments (f32, two-pass
-        biased variance) over n rows. Changes no state."""
+        biased variance) over n rows, of every rank of ``axis``. Changes no
+        state."""
         if not self.training:
             return self.running_mean, self.running_var, None
-        return batch_moments(x, mask)
+        return batch_moments(x, mask, self.axis)
 
     def update_running(
         self, mean: torch.Tensor, var: torch.Tensor, n: torch.Tensor

@@ -9,7 +9,8 @@ carries block metadata (B1 builds A's blocks once per batch, B2 runs every
 matvec) and the fused assign head (B4 for SAGE + relu, B6 otherwise; in
 training B3 and B5 with B4), or through ELL gathers in plain PyTorch when
 it does not; stages 2-3 are dense batched matmuls. Eval and training mode
-(``model.train()``: BN batch statistics, head dropout).
+(``model.train()``: BN batch statistics, head dropout); in training over a
+data axis (``set_data_axis``) the batch statistics span every rank's graphs.
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ from cgcnet_tpu_torch.nn.blocks import (
     paired_blocks,
 )
 from cgcnet_tpu_torch.nn.jk import BiLSTMParams, DenseJK
-from cgcnet_tpu_torch.nn.layers import TorchLinear, activation
+from cgcnet_tpu_torch.nn.layers import TorchBatchNorm, TorchLinear, activation
 from cgcnet_tpu_torch.ops.bsr import bsr_build_blocks, live_slot_counts
 from cgcnet_tpu_torch.ops.ell import EPS, renorm_dense, renorm_ell
+from cgcnet_tpu_torch.parallel.mesh import GraphAxis
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -169,6 +171,15 @@ class CGCNet(nn.Module):
             self.add_module(name, TorchLinear(a, b))
         self.pred_out = TorchLinear(dims[-1], c.num_classes)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
+
+    def set_data_axis(self, axis: Optional[GraphAxis]) -> None:
+        """Take the training statistics (every BN's batch moments and the
+        fused tail's B3 sums) over the rows of every rank of the data
+        ``axis`` (None: this process's rows alone). Eval mode reads the
+        running statistics and never the axis."""
+        for mod in self.modules():
+            if isinstance(mod, TorchBatchNorm):
+                mod.axis = axis
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """torch-default uniform init (fan-in bounds) of every linear and

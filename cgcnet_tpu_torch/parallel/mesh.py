@@ -1,21 +1,28 @@
-"""The graph axis of the whole-slide path: one process per shard.
+"""The axes of the port's process groups: the graph axis of the whole-slide
+path and the data axis of the patch training step, one process per rank.
 
-Port of the graph axis of ``cgcnet_tpu/parallel/mesh.py``. The JAX package
-node-partitions a slide over the mesh axis ``graph`` of one program; here
-each shard is a process (a rank of a ``torch.distributed`` group) that
-holds its own rows, and ``parallel/mega_graph.py`` runs the graph axis's
-collectives over the group. :class:`GraphAxis` is what the slide path
-carries: the group, this process's shard index and the shard count, and
-the device the rank computes on. Its one-member form (:data:`ONE`) needs no
-``torch.distributed`` at all; every one-shard path runs on it.
+Port of ``cgcnet_tpu/parallel/mesh.py``. The JAX package splits one program
+over the mesh axes ``graph`` (a slide's nodes) and ``data`` (a batch's
+graphs); here each rank is a process of a ``torch.distributed`` group, and
+``parallel/mega_graph.py`` runs the collectives over the group.
+:class:`GraphAxis` is what either axis carries: the group, this process's
+rank and the rank count, and the device the rank computes on. Its
+one-member form (:data:`ONE`) needs no ``torch.distributed`` at all; every
+one-rank path runs on it.
+
+The data axis (:func:`shard_batch`, :func:`multihost_init`,
+:func:`own_group`): rank r holds rows [r·B/D, (r+1)·B/D) of every global
+batch of B graphs. The JAX package's data-parallel step is the global
+program's, so every batch statistic (BN moments, the assign tail's B3
+sums) is taken over the whole batch: ``train.loop.make_train_step`` sums
+them over the axis and averages the gradients with
+``DistributedDataParallel``.
 
 The backend is chosen by a stated rule (:func:`backend_for`), never by
 trying one and catching its error: ``gloo`` on the CPU; on CUDA ``nccl``
 when every rank owns a card of its own (world size <= device count), and
 otherwise ``gloo`` with rank r on ``cuda:(local_rank % device_count)`` —
 how several ranks share one card (NCCL refuses two ranks on one device).
-
-The data axis of the JAX mesh (data parallelism) is not ported here.
 """
 
 from __future__ import annotations
@@ -38,9 +45,9 @@ def launcher(shards: int) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class GraphAxis:
-    """The graph axis as this process sees it: shard ``rank`` of ``size``,
-    computing on ``device``, its collectives over ``group`` (None for one
-    member) on ``backend``."""
+    """An axis (the graph axis or the data axis) as this process sees it:
+    rank ``rank`` of ``size``, computing on ``device``, its collectives
+    over ``group`` (None for one member) on ``backend``."""
 
     rank: int = 0
     size: int = 1
@@ -125,6 +132,65 @@ def _joined(cpu: bool) -> GraphAxis:
                      dist.group.WORLD, dist.get_backend())
 
 
+def _env_rank() -> tuple[int, int, int]:
+    """(rank, world size, local rank) from the launcher's environment
+    (``torch.distributed.run`` sets ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``)."""
+    try:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    except KeyError as e:
+        raise RuntimeError(
+            f"{e.args[0]} is not set: start the processes with a launcher "
+            "(python -m torch.distributed.run --nproc-per-node N ...) or "
+            "set RANK and WORLD_SIZE") from None
+    return rank, world, int(os.environ.get("LOCAL_RANK", rank))
+
+
+def multihost_init(coordinator: Optional[str] = None, *, cpu: bool = False,
+                   timeout: Optional[datetime.timedelta] = None) -> GraphAxis:
+    """Join the default group as one process of a multi-process run and
+    return the data axis over it. Rank, world size and local rank come
+    from the launcher's environment; the rendezvous is the launcher's
+    (``env://``) or, with ``coordinator`` (``host:port``), a TCP store
+    there (``tcp://host:port``, rank 0 serving it). Backend and device by
+    :func:`backend_for` / :func:`rank_device`."""
+    rank, world, local = _env_rank()
+    init = f"tcp://{coordinator}" if coordinator else "env://"
+    return init_graph_axis(rank, world, cpu=cpu, init_method=init,
+                           local_rank=local, timeout=timeout)
+
+
+def own_group(axis: GraphAxis) -> GraphAxis:
+    """The same ranks over a group of their own (``dist.new_group``, the
+    axis's backend): the batch statistics' sums run inside the forward and
+    the backward, and on a group apart they never interleave with
+    ``DistributedDataParallel``'s bucket all-reduces, which run
+    asynchronously during the backward. Every rank calls it at the same
+    point; one member needs no group."""
+    if axis.size == 1:
+        return axis
+    group = dist.new_group(list(range(axis.size)), backend=axis.backend)
+    return dataclasses.replace(axis, group=group)
+
+
+def shard_batch(graph, axis: GraphAxis):
+    """This rank's slice of a global batch: rows [r·B/D, (r+1)·B/D) of
+    every batch-axis field of a ``CellGraph`` (``shard_batch_graph``'s
+    counterpart); the graph itself for one rank."""
+    if axis.size == 1:
+        return graph
+    b = graph.x.shape[0]
+    if b % axis.size:
+        raise ValueError(f"a batch of {b} graphs does not split over "
+                         f"{axis.size} ranks")
+    per = b // axis.size
+    rows = slice(axis.rank * per, (axis.rank + 1) * per)
+    return dataclasses.replace(graph, **{
+        f.name: getattr(graph, f.name)[rows]
+        for f in dataclasses.fields(graph)
+        if getattr(graph, f.name) is not None})
+
+
 @contextlib.contextmanager
 def launched_axis(cpu: bool):
     """The graph axis of this process: the default group when one is
@@ -141,8 +207,7 @@ def launched_axis(cpu: bool):
             ONE, device=(torch.device("cpu") if dtype_ == "cpu" else
                          torch.device("cuda", torch.cuda.current_device())))
         return
-    axis = init_graph_axis(int(os.environ["RANK"]), world, cpu=cpu,
-                           local_rank=int(os.environ.get("LOCAL_RANK", "0")))
+    axis = multihost_init(cpu=cpu)
     try:
         yield axis
     finally:

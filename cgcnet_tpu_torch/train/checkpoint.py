@@ -13,6 +13,12 @@ serving checkpoints. ``state_dict_from_flax`` turns the JAX package's
 keeps the JAX package's module names (SAGE ``lin``, GIN ``mlp_0`` and
 ``mlp_1``, GAT ``q``, ``k`` and ``v``; GAT's head count changes no
 parameter).
+
+In a multi-process run (a ``torch.distributed`` default group joined) only
+rank 0 writes: a data-parallel run's parameters and optimizer state are
+the same on every rank, and the other ranks return the path rank 0 writes
+(``cgcnet_tpu/train/checkpoint.py``'s process-0 rule). Sharded state goes
+through ``train/checkpoint_sharded.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cgcnet_tpu_torch.config import Config
 
@@ -58,6 +65,13 @@ def state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+def writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default group
+    when one is joined, else always."""
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
 def save_checkpoint(
     path: str | Path,
     state_dict: Mapping[str, torch.Tensor],
@@ -65,8 +79,12 @@ def save_checkpoint(
     meta: dict | None = None,
     extra: dict | None = None,
 ) -> Path:
-    """Write a checkpoint; ``extra`` adds entries (the training state)."""
+    """Write a checkpoint; ``extra`` adds entries (the training state).
+    Only rank 0 writes when a default group is joined (:func:`writes`); the
+    others return the path."""
     path = Path(path)
+    if not writes():
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(
         {
@@ -105,7 +123,8 @@ def save_train_checkpoint(
 ) -> Path:
     """``<ckpt_dir>/<name>.pt`` with everything a resume needs (a
     ``train.state.TrainState``); ``is_best`` also copies it to
-    ``model_best.pt`` (reference common/utils.py:82-94)."""
+    ``model_best.pt`` (reference common/utils.py:82-94). Rank 0 only, as
+    :func:`save_checkpoint`."""
     ckpt_dir = Path(ckpt_dir)
     path = save_checkpoint(
         ckpt_dir / f"{name}.pt", state.model.state_dict(), cfg,
@@ -117,7 +136,7 @@ def save_train_checkpoint(
             "generator": state.generator.get_state(),
         },
     )
-    if is_best:
+    if is_best and writes():
         shutil.copy(path, ckpt_dir / "model_best.pt")
     return path
 

@@ -5,7 +5,8 @@ Port of ``cgcnet_tpu/train/loop.py``:
 - one optimization step = forward in training mode (BN batch statistics,
   head dropout from the state's generator), CE loss, backward, optimizer
   step; its metrics stay on the device, so no step waits for the host
-  beyond the ``log_every`` records;
+  beyond the ``log_every`` records; over a data axis of ranks the same
+  step of the global batch (``make_train_step(data_axis=)``);
 - mid-epoch validation every ``eval_every_batches`` batches with
   best-checkpoint tracking keyed on image-level accuracy (train.py:185-207,
   including the ``> best - 1e-7`` tie-forgiveness);
@@ -28,11 +29,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from cgcnet_tpu_torch.config import Config
 from cgcnet_tpu_torch.core.graph import CellGraph
 from cgcnet_tpu_torch.dataflow.loader import GraphLoader
 from cgcnet_tpu_torch.nn.model import cross_entropy_loss
+from cgcnet_tpu_torch.parallel.mega_graph import psum
+from cgcnet_tpu_torch.parallel.mesh import GraphAxis, own_group
 from cgcnet_tpu_torch.train.checkpoint import (
     load_train_checkpoint,
     resolve_resume_path,
@@ -47,32 +51,82 @@ from cgcnet_tpu_torch.utils.profiling import (
 )
 
 
-def make_train_step(debug_nans: bool = False):
+def make_train_step(debug_nans: bool = False,
+                    data_axis: Optional[GraphAxis] = None):
     """``train_step(state, graph) -> metrics``: one optimizer step on
     ``graph``; ``metrics`` holds device scalars (loss, acc, edges).
     ``debug_nans``: before the optimizer step, raise naming the loss or the
-    first parameter whose gradient is not finite (one host sync a step)."""
+    first parameter whose gradient is not finite (one host sync a step).
+
+    ``data_axis`` (D > 1 ranks, every rank calling ``make_train_step`` and
+    then each step at the same point): ``graph`` is this rank's rows of the
+    global batch (``parallel.mesh.shard_batch``, or a process-sharded
+    ``GraphLoader``), and the step computes the JAX package's global
+    program on it. The model's batch statistics are summed over the axis on
+    a group of their own (``mesh.own_group``), and the model is wrapped in
+    ``DistributedDataParallel`` over ``data_axis.group``, whose all-reduce
+    averages each rank's gradient of its local mean loss; with the
+    statistics' psum (whose VJP sums the cotangents over the axis) that
+    average is the gradient of the global mean loss. The metrics are the
+    global batch's (loss and accuracy averaged, edges summed: one
+    collective). Dropout draws from each rank's own generator, so only a
+    ``drop_out=0`` step is the JAX package's function."""
+    if data_axis is None or data_axis.size == 1:
+        return _local_step(debug_nans)
+    stats_axis = own_group(data_axis)
+    wrapped: dict = {}
+
+    def replica(model) -> DistributedDataParallel:
+        # one wrapper per model, made at its first step (on every rank)
+        if id(model) not in wrapped:
+            model.set_data_axis(stats_axis)
+            wrapped[id(model)] = DistributedDataParallel(
+                model, process_group=data_axis.group,
+                # running statistics are equal on every rank by construction
+                broadcast_buffers=False)
+        return wrapped[id(model)]
 
     def train_step(state: TrainState, graph: CellGraph) -> dict:
         model = state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = model(graph, generator=state.generator)
-        loss = cross_entropy_loss(logits, graph.y)
-        loss.backward()
-        if debug_nans:
-            assert_finite({"loss": loss, **{
-                f"gradient of {n}": p.grad
-                for n, p in model.named_parameters()}})
-        state.optimizer.step()
-        state.step += 1
-        return {
-            "loss": loss.detach(),
-            "acc": torch.mean((torch.argmax(logits.detach(), -1)
-                               == graph.y.long()).float()),
-            "edges": graph.num_edges(),
-        }
+        metrics = _step(state, replica(model), graph, debug_nans)
+        # loss and accuracy are means over equal per-rank batches
+        local = torch.stack([metrics["loss"], metrics["acc"],
+                             metrics["edges"].float()])
+        total = psum(local, data_axis)
+        return {"loss": total[0] / data_axis.size,
+                "acc": total[1] / data_axis.size,
+                "edges": total[2].to(torch.int32)}
 
     return train_step
+
+
+def _local_step(debug_nans: bool):
+    def train_step(state: TrainState, graph: CellGraph) -> dict:
+        return _step(state, state.model.train(), graph, debug_nans)
+
+    return train_step
+
+
+def _step(state: TrainState, net, graph: CellGraph, debug_nans: bool) -> dict:
+    """Forward through ``net`` (the model or its DDP wrapper), CE loss,
+    backward, optimizer step; this process's metrics."""
+    model = state.model
+    state.optimizer.zero_grad(set_to_none=True)
+    logits = net(graph, generator=state.generator)
+    loss = cross_entropy_loss(logits, graph.y)
+    loss.backward()
+    if debug_nans:
+        assert_finite({"loss": loss, **{
+            f"gradient of {n}": p.grad
+            for n, p in model.named_parameters()}})
+    state.optimizer.step()
+    state.step += 1
+    return {
+        "loss": loss.detach(),
+        "acc": torch.mean((torch.argmax(logits.detach(), -1)
+                           == graph.y.long()).float()),
+        "edges": graph.num_edges(),
+    }
 
 
 def make_eval_step():

@@ -123,7 +123,28 @@ Phases, each fatal on failure (exit code != 0):
    features`` on numpy tiles, on scipy's branch (the module's ``cv2`` set
    to None) and on OpenCV's where it is installed, the scipy protos loaded
    by ``NucleiGraphDataset``, with the seconds per tile. Its launch counts
-   are the paths ``ENTRY_PATHS``.
+   are the paths ``ENTRY_PATHS``;
+13. the patch training step over a data axis: 2 spawned ranks sharing the
+   one card over gloo (``dp_worker`` / ``dp_rank``), phase 4's data,
+   weights and config with ``DP_OVER`` (no dropout, SGD), each rank loading
+   its 2 of every 4-graph batch through the process-sharded ``GraphLoader``
+   and stepping through ``train.loop.make_train_step(data_axis=)`` (every
+   BN's and B3's statistics over both ranks, DDP's gradient average) for
+   ``DP_STEPS`` steps: B1/B2/B3/B4/B5 = 2/7/1/1/1 per rank per step, the
+   ranks bit-identical after each step, and held against the one-process
+   step on the same global batches on this card (losses and running
+   statistics at ``LOGIT_ATOL``/``LOGIT_RTOL``, step 1's gradients at
+   ``GRAD_REL``/``GRAD_FLOOR``, its parameters at that rule times lr plus
+   one f32 step); a sharded checkpoint of the training state written by
+   both ranks after step 1 (``train/checkpoint_sharded.py``), loaded in
+   this process, whose next step holds against the unbroken run's; then
+   ``parallel.dryrun.run_dryrun(DP_DRYRUN)`` (the data-parallel, 4-shard
+   slide and capacity steps); each rank's step wall, the host ms of one
+   step in DDP's bucket all-reduces, the statistics' sums and the
+   metrics' sum, and its peak memory, beside the card's name and power
+   limit — a correctness run of one card, not a multi-card figure. Its
+   launch counts are the paths ``data_parallel``, ``dryrun_dp`` and
+   ``dryrun_slide``.
 
 The statistics hold runs after the step holds of phases 9 and 10 that
 rest on it (it reads inputs those phases capture): a run whose statistics
@@ -255,9 +276,9 @@ TOL.update({
 ENTRY_PATHS = ("export", "gin_export", "visualize", "buckets", "random",
                "crossval", "profile")
 PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest",
-               *ENTRY_PATHS)
+               *ENTRY_PATHS, "data_parallel", "dryrun_dp")
 SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity",
-               "slide_shards")
+               "slide_shards", "dryrun_slide")
 # phase 11: the slide over SHARDS ranks sharing the one card over gloo
 # (parallel/mesh.py's backend rule), SHARD_STEPS training steps; a rank that
 # waits on the others longer than SHARD_TIMEOUT_S fails, and so the run
@@ -269,6 +290,16 @@ SHARD_TIMEOUT_S = 600
 # files of the first VIS_MAX patches; TILE_COUNT preprocess tiles of
 # TILE_PIXELS^2 px with a nucleus every TILE_STEP px; the kernels of B1-B5
 # whose names the profiler's trace must hold (f32)
+# phase 13: the canonical patch step over DP_RANKS ranks sharing the one
+# card over gloo (DP_STEPS steps, phase 4's config with DP_OVER), then
+# run_dryrun(DP_DRYRUN); a rank that waits on the others longer than
+# DP_TIMEOUT_S fails, and so the run
+DP_RANKS = 2
+DP_STEPS = 3
+DP_DRYRUN = 4
+DP_TIMEOUT_S = 600
+DP_OVER = ["model.drop_out=0.0", "train.optim=sgd", "train.lr=1e-3",
+           "train.momentum=0.9", "train.weight_decay=1e-4"]
 BUCKET_NODES = (1500, 6000)
 VIS_MAX = 6
 TILE_COUNT, TILE_PIXELS, TILE_STEP = 6, 1024, 24
@@ -304,15 +335,9 @@ def time_ms(fn, reps: int = 15, warmup: int = 2) -> float:
 
 def wrappers() -> dict:
     """Kernel id -> wrapper (each has a ``launches`` count)."""
-    from cgcnet_tpu_torch.ops import assign_head as ah
-    from cgcnet_tpu_torch.ops import bsr
+    from cgcnet_tpu_torch.ops import kernel_wrappers
 
-    return {"B1": bsr.bsr_build_blocks, "B2": bsr.bsr_matmul,
-            "B3": ah.l2relu_stats, "B4": ah.assign_head_softmax_pre,
-            "B5": ah.assign_tail_bwd, "B6": ah.assign_head_softmax,
-            "B7": bsr.bsr_gather_sum, "B8": bsr.bsr_matmul_banded,
-            "B9a": ah.assign_head_softmax_pre_lin,
-            "B9b": ah.l2relu_stats_lin}
+    return kernel_wrappers()
 
 
 def zero_counts() -> None:
@@ -2462,6 +2487,8 @@ def slice_phase(tmp: Path, device) -> dict:
     paths.update(shards.pop("paths"))
     entry_points = entry_phase(tmp, device, overrides, cfg)
     paths.update(entry_points.pop("paths"))
+    data_parallel = dp_phase(tmp, device, cfg)
+    paths.update(data_parallel.pop("paths"))
     for entry in kernels:
         key = entry.pop("key")
         by_path = {name: paths[name][key] for name in entry.pop("paths")}
@@ -2469,7 +2496,8 @@ def slice_phase(tmp: Path, device) -> dict:
         entry["launches_by_path"] = by_path
         if by_path and entry["launches"] == 0:
             raise SystemExit(f"{entry['name']}: no launch on any path")
-    return {**slide, **shards, **entry_points, "kernels": kernels,
+    return {**slide, **shards, **entry_points, **data_parallel,
+            "kernels": kernels,
             "stats_hold": stats,
             "forward_ms_per_batch": fwd_ms,
             "predict_wall_s": wall, "train_step_ms": train["step_ms"],
@@ -2888,6 +2916,356 @@ def entry_phase(tmp: Path, device, overrides, cfg) -> dict:
     return {"paths": paths, "export_forward_ms": export_ms,
             "eager_forward_ms": eager_ms,
             "preprocess_s_per_tile": per_tile, "entry_wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the patch training step over a data axis of ranks
+# ---------------------------------------------------------------------------
+
+def dp_config(cfg):
+    """Phase 13's configuration: phase 4's, without dropout (JAX's sharded
+    step draws one global mask, each rank its own) and with SGD, whose
+    update is linear in the gradient, so the parameters hold at the
+    gradients' rule."""
+    return cfg.apply_overrides(DP_OVER)
+
+
+def dp_state(cfg, device, ckpt: Path):
+    """A training state of ``cfg`` on ``device`` with the checkpoint's
+    weights."""
+    from cgcnet_tpu_torch.train.checkpoint import load_checkpoint
+    from cgcnet_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, device)
+    state.model.load_state_dict(load_checkpoint(ckpt)[0], strict=True)
+    return state
+
+
+def step_record(state) -> dict:
+    """Copies of the parameters, gradients and running statistics after a
+    step, on the CPU."""
+    model = state.model
+    copy = lambda t: t.detach().to("cpu", copy=True)
+    return {"params": {n: copy(p) for n, p in model.named_parameters()},
+            "grads": {n: copy(p.grad) for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "buffers": {n: copy(b) for n, b in model.named_buffers()}}
+
+
+def params_close(what, p_got, ref: dict, lr: float) -> None:
+    """Parameters after a first SGD step (update lr x the gradient, plus
+    weight decay, the same on both sides) against ``ref``'s: PR 2's
+    gradient rule (GRAD_REL of the tensor's max|grad| plus GRAD_FLOOR of
+    the model's largest gradient) times lr, plus one f32 rounding step of
+    the tensor's largest value (2^-23 of it: each side rounds its stored
+    parameter once)."""
+    g_ref, p_ref = ref["grads"], ref["params"]
+    top = max(g.abs().max().item() for g in g_ref.values())
+    ratio = {}
+    for n, p in p_ref.items():
+        tol = (lr * (GRAD_REL * g_ref[n].abs().max().item() + GRAD_FLOOR * top)
+               + 2.0 ** -23 * p.abs().max().item())
+        ratio[n] = (p_got[n] - p).abs().max().item() / tol
+    w = max(ratio, key=ratio.get)
+    log(f"  {what}: worst {w} at {ratio[w]:.3f} of lr x (the gradient rule) "
+        f"+ 2^-23 x max|p| ({len(ratio)} tensors)")
+    if not ratio[w] <= 1.0:
+        raise SystemExit(f"{what}: parameter {w} out of tolerance")
+
+
+def dp_worker(rank: int, world: int, work: str, cfg_json: str,
+              ckpt: str, cpu: bool) -> None:
+    """Rank ``rank`` of phase 13 (a spawned process): join the group of
+    ``world`` ranks (gloo, every rank on the one card), run
+    :func:`dp_rank`, save its results under ``work``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from cgcnet_tpu_torch.config import Config
+    from cgcnet_tpu_torch.parallel.mesh import init_graph_axis
+
+    axis = init_graph_axis(
+        rank, world, cpu=cpu, init_method=f"file://{work}/init",
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        torch.save(dp_rank(axis, Path(work), Config.from_json(cfg_json),
+                           Path(ckpt)),
+                   Path(work) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_rank(axis, work: Path, cfg, ckpt: Path) -> dict:
+    """One rank's part of phase 13: DP_STEPS data-parallel steps on its rows
+    of the process-sharded loader's global batches, with the counters, the
+    host clock and the peak memory read per step, a sharded checkpoint of
+    the training state after the first; then one more step with the
+    collectives timed (DDP's bucket all-reduces through a comm hook that
+    waits on each, the statistics' and the metrics' sums through the
+    collectives' raw all-gather)."""
+    import torch
+    from torch.distributed.algorithms.ddp_comm_hooks.default_hooks import (
+        allreduce_hook,
+    )
+    from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
+    from cgcnet_tpu_torch.dataflow.loader import GraphLoader
+    from cgcnet_tpu_torch.parallel import mega_graph
+    from cgcnet_tpu_torch.train import checkpoint_sharded, loop
+
+    timed = {"on": False, "ddp_ms": 0.0, "ddp_calls": 0,
+             "statistics_ms": 0.0, "statistics_calls": 0,
+             "metrics_ms": 0.0, "metrics_calls": 0}
+
+    def hook(group, bucket):
+        if not timed["on"]:
+            return allreduce_hook(group, bucket)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fut = allreduce_hook(group, bucket)
+        fut.wait()
+        torch.cuda.synchronize()
+        timed["ddp_ms"] += (time.perf_counter() - t0) * 1e3
+        timed["ddp_calls"] += 1
+        return fut
+
+    class TimedDDP(loop.DistributedDataParallel):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.register_comm_hook(self.process_group, hook)
+
+    raw, plain_ddp = mega_graph._gather_raw, loop.DistributedDataParallel
+
+    def gather(x, ax):
+        if not timed["on"]:
+            return raw(x, ax)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = raw(x, ax)
+        torch.cuda.synchronize()
+        kind = "metrics" if ax.group is axis.group else "statistics"
+        timed[f"{kind}_ms"] += (time.perf_counter() - t0) * 1e3
+        timed[f"{kind}_calls"] += 1
+        return out
+
+    loop.DistributedDataParallel, mega_graph._gather_raw = TimedDDP, gather
+    try:
+        device = axis.device
+        state = dp_state(cfg, device, ckpt)
+        loader = GraphLoader(
+            NucleiGraphDataset(cfg.data, "train"), cfg.data.batch_size,
+            device=device, shuffle=True, num_workers=1, seed=cfg.data.seed,
+            drop_last=True, rank=axis.rank, world=axis.size)
+        step = loop.make_train_step(data_axis=axis)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = {"backend": axis.backend, "staged": axis.staged, "steps": []}
+        for i, graph in enumerate(loader.epoch(0)):
+            if i == DP_STEPS:
+                timed["on"] = True
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            m = step(state, graph)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            if i == DP_STEPS:
+                out["timed_step_ms"] = wall
+                break
+            out["steps"].append({
+                "loss": float(m["loss"]), "acc": float(m["acc"]),
+                "wall_ms": wall, "launches": counts,
+                "n_nodes": graph.n_nodes.tolist(),
+                "rows": tuple(graph.x.shape[:2]), **step_record(state)})
+            if i == 0:
+                checkpoint_sharded.save_sharded(
+                    work / "ckpt", checkpoint_sharded.train_state(
+                        state.model, state.optimizer))
+        out.update(collectives={k: v for k, v in timed.items() if k != "on"},
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+        return out
+    finally:
+        loop.DistributedDataParallel, mega_graph._gather_raw = plain_ddp, raw
+
+
+def dp_phase(tmp: Path, device, cfg) -> dict:
+    """Phase 13 (see the module docstring). Returns the launch counts of its
+    paths (``data_parallel``: the ranks' DP_STEPS steps; ``dryrun_dp`` and
+    ``dryrun_slide``: the dry run's steps, every rank) and its numbers."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
+    from cgcnet_tpu_torch.dataflow.loader import GraphLoader
+    from cgcnet_tpu_torch.parallel.dryrun import run_dryrun
+    from cgcnet_tpu_torch.train import checkpoint_sharded
+    from cgcnet_tpu_torch.train.loop import make_train_step
+
+    log(f"phase 13: the patch step over a data axis of {DP_RANKS} ranks on "
+        f"one card over gloo ({DP_STEPS} steps, process-sharded loader), a "
+        f"sharded checkpoint, run_dryrun({DP_DRYRUN})")
+    t_phase = time.time()
+    dcfg = dp_config(cfg)
+    ckpt = tmp / "model_SAGE.pt"
+
+    # the one-process step on the same global batches, on this card
+    state = dp_state(dcfg, device, ckpt)
+    loader = GraphLoader(
+        NucleiGraphDataset(dcfg.data, "train"), dcfg.data.batch_size,
+        device=device, shuffle=True, num_workers=1, seed=dcfg.data.seed,
+        drop_last=True)
+    step = make_train_step()
+    ref, batches = [], []
+    for graph in loader.epoch(0):
+        zero_counts()
+        m = step(state, graph)
+        ref.append({"loss": float(m["loss"]), "acc": float(m["acc"]),
+                    "launches": read_counts(), **step_record(state)})
+        batches.append(graph)
+        if len(ref) == DP_STEPS:
+            break
+    del state
+    torch.cuda.empty_cache()
+
+    work = tmp / "dp"
+    work.mkdir()
+    t0 = time.time()
+    ctx = mp.start_processes(
+        dp_worker, args=(DP_RANKS, str(work), dcfg.to_json(), str(ckpt),
+                         device.type == "cpu"),
+        nprocs=DP_RANKS, join=False, start_method="spawn")
+    deadline = t0 + 2 * DP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise SystemExit(f"phase 13: the ranks ran past "
+                                 f"{2 * DP_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    wall = time.time() - t0
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+    r0 = ranks[0]
+
+    want = expected(TRAIN_PER_STEP)
+    per = dcfg.data.batch_size // DP_RANKS
+    for r, rk in enumerate(ranks):
+        for i, (s, s0) in enumerate(zip(rk["steps"], r0["steps"])):
+            if s["launches"] != want or ref[i]["launches"] != want:
+                raise SystemExit(f"phase 13 rank {r} step {i}: launches "
+                                 f"{s['launches']} (one process "
+                                 f"{ref[i]['launches']}) != {want}")
+            if s["rows"] != (per, CANONICAL["N"]):
+                raise SystemExit(f"phase 13 rank {r}: rows {s['rows']}")
+            same = s["loss"] == s0["loss"] and all(
+                torch.equal(s[part][n], t) for part in
+                ("params", "grads", "buffers") for n, t in s0[part].items())
+            if not same:
+                raise SystemExit(f"phase 13 step {i}: rank {r}'s state "
+                                 f"differs from rank 0's")
+        if len(rk["steps"]) != DP_STEPS:
+            raise SystemExit(f"phase 13 rank {r}: {len(rk['steps'])} steps")
+    log(f"  every rank: launches per step {want} (the one-process step's), "
+        f"{per} graphs of {CANONICAL['N']} rows; parameters, gradients and "
+        f"running statistics equal rank 0's after each of {DP_STEPS} steps "
+        f"({r0['backend']}, staged through host memory: {r0['staged']})")
+
+    def stats_close(what, got, want_) -> None:
+        bad = [n for n, t in want_.items() if "running" in n and not
+               np.allclose(got[n].numpy(), t.numpy(), atol=LOGIT_ATOL,
+                           rtol=LOGIT_RTOL)]
+        if bad:
+            raise SystemExit(f"phase 13 {what}: running statistics {bad[:5]}")
+
+    losses = [s["loss"] for s in r0["steps"]]
+    ref_losses = [s["loss"] for s in ref]
+    log(f"  losses {losses} vs the one-process step {ref_losses} (atol "
+        f"{LOGIT_ATOL}, rtol {LOGIT_RTOL})")
+    if not np.allclose(losses, ref_losses, atol=LOGIT_ATOL, rtol=LOGIT_RTOL):
+        raise SystemExit("phase 13: losses differ from the one-process step")
+    grads_close("phase 13 step 1 gradients, 2 ranks vs one process",
+                r0["steps"][0]["grads"], ref[0]["grads"], GRAD_REL)
+    params_close("phase 13 step 1 parameters, 2 ranks vs one process",
+                 r0["steps"][0]["params"], ref[0], dcfg.train.lr)
+    for i, (s, s_ref) in enumerate(zip(r0["steps"], ref)):
+        stats_close(f"step {i}", s["buffers"], s_ref["buffers"])
+    log(f"  running statistics after each step within atol {LOGIT_ATOL}, "
+        f"rtol {LOGIT_RTOL} of the one-process step's")
+
+    # the sharded checkpoint: saved by both ranks after step 1, loaded in
+    # this process, step 2 against the unbroken run's
+    state = dp_state(dcfg, device, ckpt)
+    checkpoint_sharded.load_train_state(work / "ckpt", state.model,
+                                        state.optimizer)
+    loaded = step_record(state)
+    if not all(torch.equal(loaded["params"][n], t)
+               for n, t in r0["steps"][0]["params"].items()):
+        raise SystemExit("phase 13: the loaded parameters differ from the "
+                         "saved ones")
+    m = make_train_step()(state, batches[1])
+    nxt = step_record(state)
+    unbroken = r0["steps"][1]
+    log(f"  sharded checkpoint (2 ranks -> one process): next step loss "
+        f"{float(m['loss'])} vs the unbroken run's {unbroken['loss']}")
+    if not np.isclose(float(m["loss"]), unbroken["loss"], atol=LOGIT_ATOL,
+                      rtol=LOGIT_RTOL):
+        raise SystemExit("phase 13: the resumed step's loss")
+    grads_close("phase 13 resumed step gradients vs the unbroken run",
+                nxt["grads"], unbroken["grads"], GRAD_REL)
+    stats_close("resumed step", nxt["buffers"], unbroken["buffers"])
+    del state, batches
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    dry = run_dryrun(DP_DRYRUN, cpu=device.type == "cpu")
+    dry_s = time.time() - t0
+    for r, res in enumerate(dry):
+        got = {k: res["dp"]["launches"].get(k, 0) for k in KERNELS}
+        if got != expected(TRAIN_PER_STEP):
+            raise SystemExit(f"dry run rank {r}: launches {res['dp']}")
+        for name in ("slide", "slide-capacity"):
+            if not (res[name]["loss"] == dry[0][name]["loss"]
+                    and np.isfinite(res[name]["loss"])):
+                raise SystemExit(f"dry run rank {r} {name}: {res[name]}")
+        if not (res["slide-capacity"]["launches"]["B9a"]
+                and res["slide-capacity"]["launches"]["B9b"]):
+            raise SystemExit(f"dry run rank {r}: the capacity step launched "
+                             f"no B9a/B9b: {res['slide-capacity']}")
+    log(f"  run_dryrun({DP_DRYRUN}): {dry_s:.1f} s; rank 0 "
+        + "; ".join(f"{k} loss {v['loss']:.6f}, launches {v['launches']}"
+                    for k, v in dry[0].items() if isinstance(v, dict)))
+
+    for r, rk in enumerate(ranks):
+        c = rk["collectives"]
+        log(f"  rank {r} ({card_line()}; one card, {DP_RANKS} ranks over gloo:"
+            f" a correctness run, not a multi-card figure): step wall "
+            f"{[round(s['wall_ms'], 3) for s in rk['steps']]} ms (host clock,"
+            f" the first with DDP's set-up); a step with the collectives "
+            f"timed {rk['timed_step_ms']:.3f} ms, of it DDP "
+            f"{c['ddp_ms']:.3f} ms in {c['ddp_calls']} bucket all-reduces, "
+            f"statistics {c['statistics_ms']:.3f} ms in "
+            f"{c['statistics_calls']} sums, metrics {c['metrics_ms']:.3f} ms "
+            f"in {c['metrics_calls']}; peak memory {rk['peak_gib']:.3f} GiB")
+    wall_phase = time.time() - t_phase
+    log(f"  phase 13 wall {wall_phase:.1f} s (ranks {wall:.1f} s)")
+    dp_counts = {k: sum(s["launches"][k] for rk in ranks for s in rk["steps"])
+                 for k in KERNELS}
+    dry_dp = {k: sum(res["dp"]["launches"].get(k, 0) for res in dry)
+              for k in KERNELS}
+    dry_slide = {k: sum(res[n]["launches"].get(k, 0) for res in dry
+                        for n in ("slide", "slide-capacity"))
+                 for k in KERNELS}
+    return {"paths": {"data_parallel": dp_counts, "dryrun_dp": dry_dp,
+                      "dryrun_slide": dry_slide},
+            "dp_step_wall_ms": [[s["wall_ms"] for s in rk["steps"]]
+                                for rk in ranks],
+            "dp_timed_step_ms": [rk["timed_step_ms"] for rk in ranks],
+            "dp_collectives": [rk["collectives"] for rk in ranks],
+            "dp_peak_gib": [rk["peak_gib"] for rk in ranks],
+            "dryrun_s": dry_s, "dp_wall_s": wall_phase}
 
 
 # the kernels whose compiler report phase 2 must hold: the bf16

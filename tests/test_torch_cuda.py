@@ -1299,6 +1299,126 @@ def test_graph_axis_two_ranks_one_card(device, tmp_path):
         assert torch.equal(res["all_gather"], v)
 
 
+# ---------------------------------------------------------------------------
+# the data axis: two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+DP_OVER = ["model.hidden_dim=8", "model.embedding_dim=8",
+           "model.assign_hidden_dim=8", "model.max_num_nodes=512",
+           "model.drop_out=0.0", "train.optim=sgd", "train.lr=1e-3",
+           "train.momentum=0.9"]
+
+
+def test_data_axis_two_ranks_one_card(device, tmp_path):
+    """The data-parallel step at D = 2 ranks on one card (gloo, DDP's
+    all-reduce and the statistics' psums of CUDA tensors): both ranks hold
+    the same state bit for bit; per step each rank launches B1/B2/B3/B4/B5
+    2/7/1/1/1, as the one-process step on the whole batch does; the loss
+    and the running statistics hold against that step at atol 1e-4, rtol
+    1e-3 (chip_smoke.py's card-vs-CPU loss rule: f32 sums in another
+    order), the gradients at 1e-3 of each tensor's max|grad| plus 1e-5 of
+    the model's largest (its gradient rule)."""
+    import torch.multiprocessing as mp
+
+    import torch_data_parallel_worker as worker
+    from cgcnet_tpu_torch.parallel.dryrun import counted, example_batch
+    from cgcnet_tpu_torch.train.loop import make_train_step
+
+    batch = example_batch(4, cap=256, seed=2)
+    case = dict(name="dp", kind="steps", over=DP_OVER, batch=batch, steps=2)
+    torch.save([case], tmp_path / "job.pt")
+    mp.start_processes(worker.run, args=(2, str(tmp_path / "init"),
+                                         str(tmp_path / "job.pt"),
+                                         str(tmp_path), False),
+                       nprocs=2, join=True, start_method="spawn")
+    r0, r1 = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+              for r in range(2))
+    assert r0["axis"]["backend"] == "gloo"
+    state = worker.state_of(case, device)
+    step = make_train_step()
+    graph = worker.graph_of(batch).to(device)
+    want = {"B1": 2, "B2": 7, "B3": 1, "B4": 1, "B5": 1}
+    nonzero = lambda d: {k: v for k, v in d.items() if v}
+    for a, b in zip(r0["dp"]["steps"], r1["dp"]["steps"]):
+        m, made = counted(lambda: step(state, graph))
+        ref = worker._snap(state.model)
+        assert nonzero(a["launches"]) == nonzero(b["launches"]) == \
+            nonzero(made) == want
+        assert a["loss"] == b["loss"]
+        for part in ("params", "grads", "buffers"):
+            for n, t in a[part].items():
+                assert torch.equal(t, b[part][n]), (part, n)
+        np.testing.assert_allclose(a["loss"], float(m["loss"]), atol=1e-4,
+                                   rtol=1e-3)
+        top = max(g.abs().max().item() for g in ref["grads"].values())
+        for n, g in ref["grads"].items():
+            tol = 1e-3 * g.abs().max().item() + 1e-5 * top
+            assert (a["grads"][n] - g).abs().max().item() <= tol, n
+        for n, t in ref["buffers"].items():
+            if "running" in n:
+                np.testing.assert_allclose(a["buffers"][n].numpy(),
+                                           t.numpy(), atol=1e-4, rtol=1e-3,
+                                           err_msg=n)
+
+
+def test_sharded_checkpoint_two_ranks_one_card(device, tmp_path):
+    """``train/checkpoint_sharded.py`` with CUDA ``DTensor``s on a gloo mesh
+    of two ranks sharing the card (``DeviceMesh.from_group``): the layout
+    round-trips, loads replicated at D = 2 and into CPU tensors of one
+    process, and a training state saved at D = 2 reloads bit for bit."""
+    import torch.multiprocessing as mp
+    from torch.distributed.tensor import Replicate, Shard
+
+    import torch_data_parallel_worker as worker
+    from cgcnet_tpu_torch.parallel.dryrun import example_batch
+    from cgcnet_tpu_torch.train import checkpoint_sharded as cs
+
+    x = np.arange(8 * 16, dtype=np.float32).reshape(8, 16)
+    w = np.linspace(0, 1, 24, dtype=np.float32)
+    train = dict(over=DP_OVER, batch=example_batch(4, cap=256, seed=3))
+    torch.save([dict(name="sharded", kind="sharded", root=str(tmp_path), x=x,
+                     w=w, train=train)], tmp_path / "job.pt")
+    mp.start_processes(worker.run, args=(2, str(tmp_path / "init"),
+                                         str(tmp_path / "job.pt"),
+                                         str(tmp_path), False),
+                       nprocs=2, join=True, start_method="spawn")
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt",
+                         weights_only=False)["sharded"]
+        np.testing.assert_array_equal(got["same"]["x"].numpy(),
+                                      x[4 * r:4 * r + 4])
+        np.testing.assert_array_equal(got["same"]["w"].numpy(), w)
+        assert got["same"]["x_placements"] == [Shard(0)]
+        assert got["same"]["w_placements"] == [Replicate()]
+        np.testing.assert_array_equal(got["replicated"]["x"].numpy(), x)
+    one = cs.load_sharded(tmp_path / "layout", {"x": torch.zeros(8, 16)})
+    np.testing.assert_array_equal(one["x"].numpy(), x)
+    state = worker.state_of(train, device)
+    cs.load_train_state(tmp_path / "train", state.model, state.optimizer)
+    loaded = worker._flat(cs.train_state(state.model, state.optimizer))
+    for k, v in got["saved"].items():
+        if torch.is_tensor(v):
+            assert torch.equal(loaded[k].cpu(), v), k
+
+
+def test_dryrun_four_ranks_one_card(device):
+    """``run_dryrun(4)`` on the card: per rank the data-parallel step
+    launches B1-B5 2/7/1/1/1, the 4-shard slide step and the capacity step
+    (B9a, B9b) run; losses finite and the same on every rank."""
+    from cgcnet_tpu_torch.parallel.dryrun import run_dryrun
+
+    res = run_dryrun(4)
+    for r in res:
+        assert r["backend"] == "gloo" and r["device"].startswith("cuda")
+        assert {k: v for k, v in r["dp"]["launches"].items() if v} == \
+            {"B1": 2, "B2": 7, "B3": 1, "B4": 1, "B5": 1}
+        cap = r["slide-capacity"]["launches"]
+        assert cap["B9a"] > 0 and cap["B9b"] > 0
+        for name in ("dp", "slide", "slide-capacity"):
+            assert np.isfinite(r[name]["loss"])
+            assert r[name]["loss"] == res[0][name]["loss"], name
+
+
 @pytest.mark.parametrize("gcn,head", [("SAGE", "assign_head_softmax_pre"),
                                       ("GIN", "assign_head_softmax")])
 def test_kernel_artifact_launches_kernels(device, tmp_path, gcn, head):
