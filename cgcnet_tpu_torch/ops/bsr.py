@@ -45,6 +45,11 @@ W_BAND = 16       # contiguous column tiles per super tile's window
 H_BAND_MAX = 4    # halo column tiles a resident tail may hold
 H_SUB = H_BAND_MAX // 2  # tiles per halo sub-window (two of them)
 BAND_MIN_F = 512  # the banded kernel serves only legs at least this wide
+# The plain block product gathers x's column tile for every slot, [B, R', M,
+# T, F] in f32; it takes the row tiles R' at a time so that gather stays
+# under PLAIN_GATHER_BYTES (at 1M nuclei, F = 1140, all row tiles at once
+# are 38 GiB). Each output row is the same sum either way.
+PLAIN_GATHER_BYTES = 1 << 30
 
 
 # ---------------------------------------------------------------------------
@@ -306,11 +311,15 @@ def bsr_matmul_plain(
         )
     xt = xf.reshape(b, tiles, TILE, f)
     bidx = torch.arange(b, device=x.device).reshape(b, 1, 1)
-    gathered = xt[bidx, blk_cols.long()]                 # [B, R, M, T, F]
-    out = torch.einsum(
-        "brmij,brmjf->brif", vals.to(x.dtype).float(), gathered
-    )
-    return out.reshape(b, r * TILE, f).to(x.dtype)
+    step = max(1, PLAIN_GATHER_BYTES // (b * m * TILE * max(f, 1) * 4))
+    out = x.new_empty((b, r, TILE, f))
+    for lo in range(0, r, step):
+        rows = slice(lo, lo + step)
+        gathered = xt[bidx, blk_cols[:, rows].long()]    # [B, R', M, T, F]
+        out[:, rows] = torch.einsum(
+            "brmij,brmjf->brif", vals[:, rows].to(x.dtype).float(), gathered
+        )
+    return out.reshape(b, r * TILE, f)
 
 
 def bsr_matmul(

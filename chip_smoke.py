@@ -144,7 +144,38 @@ Phases, each fatal on failure (exit code != 0):
    metrics' sum, and its peak memory, beside the card's name and power
    limit — a correctness run of one card, not a multi-card figure. Its
    launch counts are the paths ``data_parallel``, ``dryrun_dp`` and
-   ``dryrun_slide``.
+   ``dryrun_slide``;
+14. the capacity ladder: the capacity recipe (``SLIDE_CAPACITY``, bf16,
+   phase 4's weights) on synthetic slides of ``LADDER_NUCLEI`` (500k, 750k
+   and 1M nuclei: 500224, 750080 and 1000448 rows, 8, 12 and 16 chunks),
+   each through ``make_slide_train_step``: ``LADDER_STEPS`` steps (B9b =
+   1, B9a = 1 + 2 x chunks, B5 = chunks, B2 = 10 per step: the rungs'
+   tables carry no band windows, so B2 takes the A @ S leg and its
+   transpose, B8's at 100k — ``capacity_per_step``, ``unbanded``,
+   ``BANDED_NUCLEI``), finite losses, every parameter and running
+   statistic moved, the median step time of the three by CUDA events and
+   the peak memory after ``reset_peak_memory_stats``, the host build's
+   graph and partition seconds; at each rung the eval logits held against
+   the plain versions at phase 8's rule and the train-mode loss of one
+   forward at the step holds' loss rule (``loss_hold``), and at
+   ``LADDER_GRAD_HOLD``
+   phase 10's full step hold, with the holds' peak memory; the default
+   (no-chunk) step at ``LADDER_DEFAULT`` (3 steps, its time and peak); at
+   ``LADDER_KERNELS`` B2's wide legs of the capacity step against the
+   plain version, timed like phase 3 (``ladder_kernels``); at the top rung
+   the first step under the caching allocator's history
+   (``memory_account``: the ``ACCOUNT_BLOCKS`` largest blocks alive at
+   the peak, each with the port's file:line that allocated it), then
+   ``cli.slide.main`` at 1M nuclei with the recipe and ``--train-epochs
+   1`` (finite losses and post-fine-tune logits, its launches and peak);
+   a least-squares fit of the capacity step's peak over the rungs and the
+   100k slide's steps run again here (phase 10 holds them; its own peak is
+   read while phases 8-10 keep the kernel inputs they captured) of each
+   rung's own peak (its peak less what the card held before the rung) —
+   bytes a row and fixed GiB; every number beside the card's name and
+   power limit.
+   Its launch counts are the paths ``slide_ladder``,
+   ``slide_ladder_default`` and ``slide_ladder_cli``.
 
 The statistics hold runs after the step holds of phases 9 and 10 that
 rest on it (it reads inputs those phases capture): a run whose statistics
@@ -158,6 +189,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -278,7 +310,8 @@ ENTRY_PATHS = ("export", "gin_export", "visualize", "buckets", "random",
 PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest",
                *ENTRY_PATHS, "data_parallel", "dryrun_dp")
 SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity",
-               "slide_shards", "dryrun_slide")
+               "slide_shards", "dryrun_slide", "slide_ladder",
+               "slide_ladder_default", "slide_ladder_cli")
 # phase 11: the slide over SHARDS ranks sharing the one card over gloo
 # (parallel/mesh.py's backend rule), SHARD_STEPS training steps; a rank that
 # waits on the others longer than SHARD_TIMEOUT_S fails, and so the run
@@ -308,6 +341,28 @@ PROFILE_KERNELS = {"B1": ("build_blocks_kernel",),
                    "B3": ("stats_kernel",),
                    "B4": ("gemm_kernel", "rnorm_kernel"),
                    "B5": ("tail_bwd_kernel", "tail_bwd_staged_kernel")}
+# phase 14: the capacity recipe (SLIDE_CAPACITY, bf16, phase 4's weights)
+# on synthetic slides at the JAX package's ladder rungs above phase 10's
+# 100k (BASELINE.md, benchmarks/slide_scale_r5.json), LADDER_STEPS steps a
+# rung; the default (no-chunk) step at LADDER_DEFAULT nuclei, the largest
+# rung where the JAX package's default fit; phase 10's full step hold at
+# LADDER_GRAD_HOLD; the memory account (ACCOUNT_BLOCKS blocks) and one
+# cli.slide --train-epochs 1 run at the top rung
+LADDER_NUCLEI = (500_000, 750_000, 1_000_000)
+LADDER_STEPS = 3        # the step time is their median, the first included
+LADDER_DEFAULT = 750_000
+LADDER_GRAD_HOLD = 500_000
+LADDER_TOP = LADDER_NUCLEI[-1]
+ACCOUNT_BLOCKS = 10
+# the slides whose one-shard tables carry B8's band windows: a super tile's
+# columns fit W_BAND (16) tiles on the synthetic slide at 100k nuclei, not
+# at the rungs (a band's population grows as sqrt(nuclei); the JAX
+# package's bsr_kernel.W_BAND puts the edge at ~150-200k), where B2 takes
+# B8's legs (``unbanded``), as in the JAX package
+BANDED_NUCLEI = (SLIDE_NUCLEI,)
+# the rung whose capacity step's wide B2 legs (A @ S and its transpose,
+# F = 1140, B8's legs on the 100k slide) are held and timed like phase 3
+LADDER_KERNELS = 500_000
 
 
 def log(msg: str) -> None:
@@ -1400,9 +1455,7 @@ def step_hold(model, cfg_, inputs, remat, what, kernel=every_kernel,
     routing = readout_routing()
     g_ker = grads(kernel, cfg_, routing)
     g_plain, g_32 = grads(plain, cfg_), grads(all_plain, cfg_32)
-    lim = (LOGIT_ATOL + LOGIT_RTOL * abs(g_plain[0])
-           + BF16_WIDEN * abs(g_plain[0] - g_32[0]))
-    loss_frac = abs(g_ker[0] - g_plain[0]) / lim
+    lim, loss_frac = loss_rule(g_ker[0], g_plain[0], g_32[0])
     how = (f"sharing the statistics of {', '.join(STATS_HELD)} with the "
            "kernel side" if plain is stats_shared
            else f"sites routed by {plain.__name__}")
@@ -1486,6 +1539,102 @@ def slide_model(cfg, ckpt, device):
     return model.to(device).eval()
 
 
+def logits_hold(model, cfg, inputs, what):
+    """The eval forward's logits, kernels against the plain versions on the
+    card (under no_grad), at the f32 rule widened by BF16_WIDEN x the plain
+    bf16 vs f32 distance (phase 8's rule); fails outside it or when not
+    finite. Returns the kernels' logits."""
+    import torch
+    from cgcnet_tpu_torch.parallel.mega_model import mega_forward
+
+    cfg32 = cfg.apply_overrides(["model.compute_dtype=float32"])
+    with torch.no_grad():
+        logits = mega_forward(model, cfg.model, inputs)
+        with sites_replaced(all_plain):
+            plain_logits = mega_forward(model, cfg.model, inputs)
+            plain32 = mega_forward(model, cfg32.model, inputs)
+    err = (logits - plain_logits).abs().max().item()
+    spread = BF16_WIDEN * (plain_logits - plain32).abs().max().item()
+    lim = LOGIT_ATOL + LOGIT_RTOL * plain_logits.abs().max().item() + spread
+    log(f"  {what} logits {logits.tolist()} vs plain versions on the card "
+        f"{plain_logits.tolist()} (f32 plain {plain32.tolist()}): max abs "
+        f"diff {err:.3e} (tol {lim:.3e}: the f32 rule plus {BF16_WIDEN:g}x "
+        f"the plain bf16 vs f32 distance, {spread:.3e})")
+    if not err <= lim or not torch_isfinite(logits):
+        raise SystemExit(f"{what} logits: kernels vs plain versions")
+    return logits
+
+
+def loss_rule(ker: float, plain: float, f32: float) -> tuple[float, float]:
+    """(tolerance, |ker - plain| as a fraction of it) of a bf16 slide loss:
+    the f32 rule widened by BF16_WIDEN x the plain bf16 vs f32 distance."""
+    lim = LOGIT_ATOL + LOGIT_RTOL * abs(plain) + BF16_WIDEN * abs(plain - f32)
+    return lim, abs(ker - plain) / lim
+
+
+def slide_train_steps(cfg_, ckpt, inputs, n_steps, per_step, remat_stage1,
+                      what, first=None, warm: int = 1):
+    """``n_steps`` steps of ``make_slide_train_step`` on a fresh model of
+    the checkpoint: each step's launches must be ``per_step``; finite
+    losses, every parameter and running statistic moved. ``first`` (a
+    context manager) wraps the first step. Returns (launch totals, median
+    CUDA-event step ms of the steps after the first ``warm``, {"times",
+    "losses"})."""
+    import numpy as np
+    import torch
+    from cgcnet_tpu_torch.parallel.mega_train import (
+        make_optimizer,
+        make_slide_train_step,
+    )
+
+    device = inputs.device
+    m = slide_model(cfg_, ckpt, device).train()
+    params0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+    stats0 = {n: b.clone() for n, b in m.named_buffers()}
+    step = make_slide_train_step(m, cfg_.model, make_optimizer(m, 1e-3),
+                                 remat_stage1=remat_stage1)
+    totals, times, losses = expected({}), [], []
+    for i in range(n_steps):
+        gen = torch.Generator(device=device).manual_seed(100 + i)
+        zero_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ctx = first if (i == 0 and first is not None) \
+            else contextlib.nullcontext()
+        with ctx:
+            start.record()
+            loss = step(inputs, 1, gen)
+            end.record()
+            end.synchronize()
+        counts = read_counts()
+        if counts != expected(per_step):
+            raise SystemExit(f"{what} step {i}: launches {counts} != "
+                             f"{per_step}")
+        for k, v in counts.items():
+            totals[k] += v
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    moved = [n for n, p in m.named_parameters()
+             if not torch.equal(p.detach(), params0[n])]
+    stats_moved = [n for n, b in m.named_buffers()
+                   if not torch.equal(b, stats0[n])]
+    if (not np.isfinite(losses).all() or len(moved) != len(params0)
+            or len(stats_moved) != len(stats0)):
+        raise SystemExit(
+            f"{what}: losses {losses}, parameters changed "
+            f"{len(moved)}/{len(params0)}, running statistics "
+            f"{len(stats_moved)}/{len(stats0)}")
+    med = statistics.median(times[warm:])
+    log(f"  {n_steps} {what} steps: launches per step {per_step}, losses "
+        f"{[round(v, 4) for v in losses]}, step {med:.3f} ms (median of "
+        f"{n_steps - warm}"
+        + {0: "", 1: " after the first"}.get(warm, f" after the first {warm}")
+        + ", CUDA events; all "
+        f"{[round(v, 2) for v in times]}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return totals, med, {"times": times, "losses": losses}
+
+
 def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
     """Phases 8-10 (see the module docstring); captures the slide kernels'
     inputs into ``seen``. Returns the launch counts per path and the
@@ -1499,10 +1648,6 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
     from cgcnet_tpu_torch.parallel.mega_model import (
         mega_forward,
         prepare_mega_inputs,
-    )
-    from cgcnet_tpu_torch.parallel.mega_train import (
-        make_optimizer,
-        make_slide_train_step,
     )
     from cgcnet_tpu_torch.parallel.slide_setup import (
         build_slide_inputs,
@@ -1552,26 +1697,14 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
         build = build_slide_inputs(cfg, feats, coords, 1, device)
     inputs = build.inputs
     model = slide_model(cfg, ckpt, device)
-    with torch.no_grad(), slide_capture(seen):
-        logits = mega_forward(model, cfg.model, inputs)
-    cfg32 = Config()
     with torch.no_grad():
         fwd_ms = time_ms(lambda: mega_forward(model, cfg.model, inputs),
                          reps=5, warmup=1)
-        with sites_replaced(all_plain):
-            plain_logits = mega_forward(model, cfg.model, inputs)
-            plain32 = mega_forward(model, cfg32.model, inputs)
-    err = (logits - plain_logits).abs().max().item()
-    spread = BF16_WIDEN * (plain_logits - plain32).abs().max().item()
-    lim = LOGIT_ATOL + LOGIT_RTOL * plain_logits.abs().max().item() + spread
-    log(f"  forward {fwd_ms:.3f} ms (median of 5, CUDA events); logits "
-        f"{logits.tolist()} vs plain versions on the card "
-        f"{plain_logits.tolist()} (f32 plain {plain32.tolist()}): max abs "
-        f"diff {err:.3e} (tol {lim:.3e}: the f32 rule plus {BF16_WIDEN:g}x "
-        f"the plain bf16 vs f32 distance, {spread:.3e}); same grade as "
-        f"cli.slide: "
-        f"{int(logits.argmax()) == res['pred']}")
-    if not err <= lim or int(logits.argmax()) != res["pred"]:
+    log(f"  forward {fwd_ms:.3f} ms (median of 5, CUDA events)")
+    with slide_capture(seen):
+        logits = logits_hold(model, cfg, inputs, "slide")
+    log(f"  same grade as cli.slide: {int(logits.argmax()) == res['pred']}")
+    if int(logits.argmax()) != res["pred"]:
         raise SystemExit("slide logits: kernels vs plain versions")
     out["slide_forward_ms"] = fwd_ms
 
@@ -1579,56 +1712,10 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
     log("phase 9: slide training (100k nuclei, bf16, no chunking)")
     require_step(step_hold(model, cfg, inputs, False, "slide"), "slide")
 
-    def train_steps(cfg_, n_steps, per_step, remat_stage1, what):
-        m = slide_model(cfg_, ckpt, device).train()
-        params0 = {n: p.detach().clone() for n, p in m.named_parameters()}
-        stats0 = {n: b.clone() for n, b in m.named_buffers()}
-        step = make_slide_train_step(m, cfg_.model, make_optimizer(m, 1e-3),
-                                     remat_stage1=remat_stage1)
-        totals, times, losses = expected({}), [], []
-        for i in range(n_steps):
-            gen = torch.Generator(device=device).manual_seed(100 + i)
-            zero_counts()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if i == 0:
-                ctx = slide_capture(seen)
-            else:
-                ctx = contextlib.nullcontext()
-            with ctx:
-                start.record()
-                loss = step(inputs, 1, gen)
-                end.record()
-                end.synchronize()
-            counts = read_counts()
-            if counts != expected(per_step):
-                raise SystemExit(f"{what} step {i}: launches {counts} != "
-                                 f"{per_step}")
-            for k, v in counts.items():
-                totals[k] += v
-            times.append(start.elapsed_time(end))
-            losses.append(float(loss))
-        moved = [n for n, p in m.named_parameters()
-                 if not torch.equal(p.detach(), params0[n])]
-        stats_moved = [n for n, b in m.named_buffers()
-                       if not torch.equal(b, stats0[n])]
-        if (not np.isfinite(losses).all() or len(moved) != len(params0)
-                or len(stats_moved) != len(stats0)):
-            raise SystemExit(
-                f"{what}: losses {losses}, parameters changed "
-                f"{len(moved)}/{len(params0)}, running statistics "
-                f"{len(stats_moved)}/{len(stats0)}")
-        med = statistics.median(times[1:])
-        log(f"  {n_steps} {what} steps: launches per step {per_step}, losses "
-            f"{[round(v, 4) for v in losses]}, step {med:.3f} ms (median of "
-            f"{n_steps - 1} after the first, CUDA events; all "
-            f"{[round(v, 2) for v in times]}); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        return totals, med
-
     torch.cuda.reset_peak_memory_stats()
-    paths["slide_train"], out["slide_step_ms"] = train_steps(
-        cfg, SLIDE_TRAIN_STEPS, SLIDE_TRAIN_PER_STEP, False, "slide train")
+    paths["slide_train"], out["slide_step_ms"], _ = slide_train_steps(
+        cfg, ckpt, inputs, SLIDE_TRAIN_STEPS, SLIDE_TRAIN_PER_STEP, False,
+        "slide train", slide_capture(seen))
     out["slide_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
 
     # cli.slide --train-epochs 2 --out, then the written file served again
@@ -1663,8 +1750,9 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
     require_step(step_hold(model, cap_cfg, inputs, True, "capacity"),
                  "capacity")
     torch.cuda.reset_peak_memory_stats()
-    paths["slide_capacity"], out["capacity_step_ms"] = train_steps(
-        cap_cfg, SLIDE_CAP_STEPS, SLIDE_CAP_PER_STEP, True, "capacity")
+    paths["slide_capacity"], out["capacity_step_ms"], _ = slide_train_steps(
+        cap_cfg, ckpt, inputs, SLIDE_CAP_STEPS, SLIDE_CAP_PER_STEP, True,
+        "capacity", slide_capture(seen))
     out["capacity_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     del model, inputs, build
     torch.cuda.empty_cache()
@@ -2481,7 +2569,9 @@ def slice_phase(tmp: Path, device) -> dict:
     log("  slide kernels vs plain versions (inputs of phases 8-10)")
     slide_kernels, stats = slide_kernel_phase(slide_seen, device)
     kernels += slide_kernels
+    # slide_capture's shims hold ``slide_seen`` in a reference cycle
     del slide_seen
+    gc.collect()
     torch.cuda.empty_cache()
     shards = shards_phase(tmp, device, tmp / "model_SAGE.pt")
     paths.update(shards.pop("paths"))
@@ -2489,6 +2579,9 @@ def slice_phase(tmp: Path, device) -> dict:
     paths.update(entry_points.pop("paths"))
     data_parallel = dp_phase(tmp, device, cfg)
     paths.update(data_parallel.pop("paths"))
+    ladder = ladder_phase(tmp, device, tmp / "model_SAGE.pt")
+    paths.update(ladder.pop("paths"))
+    kernels += ladder.pop("kernels")
     for entry in kernels:
         key = entry.pop("key")
         by_path = {name: paths[name][key] for name in entry.pop("paths")}
@@ -2496,7 +2589,7 @@ def slice_phase(tmp: Path, device) -> dict:
         entry["launches_by_path"] = by_path
         if by_path and entry["launches"] == 0:
             raise SystemExit(f"{entry['name']}: no launch on any path")
-    return {**slide, **shards, **entry_points, **data_parallel,
+    return {**slide, **shards, **entry_points, **data_parallel, **ladder,
             "kernels": kernels,
             "stats_hold": stats,
             "forward_ms_per_batch": fwd_ms,
@@ -3266,6 +3359,394 @@ def dp_phase(tmp: Path, device, cfg) -> dict:
             "dp_collectives": [rk["collectives"] for rk in ranks],
             "dp_peak_gib": [rk["peak_gib"] for rk in ranks],
             "dryrun_s": dry_s, "dp_wall_s": wall_phase}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the capacity ladder — the recipe at the JAX package's rungs
+# ---------------------------------------------------------------------------
+
+def slide_rows(nuclei: int) -> int:
+    """Rows of a one-shard slide of ``nuclei`` nuclei: padded to 512
+    (``build_slide_inputs``: TILE x G_BAND row tiles a shard)."""
+    return -(-nuclei // 512) * 512
+
+
+def capacity_per_step(rows: int) -> dict:
+    """Launches of one capacity step over ``rows`` rows, chunks of
+    CAP_CHUNK (``chunk_plan``: the last one the remainder): B9b and B9a
+    once in the forward, B9a twice a chunk in the backward (its two
+    sweeps recompute S) and B5 once a chunk; B8 the A @ S leg and its
+    transpose; B2 the stage-1 legs, forward, recompute and backward."""
+    chunks = -(-rows // min(CAP_CHUNK, rows))
+    return {"B2": 8, "B5": chunks, "B8": 2, "B9a": 1 + 2 * chunks, "B9b": 1}
+
+
+def unbanded(per: dict) -> dict:
+    """``per`` on tables without band windows: B2 takes B8's legs."""
+    return {**per, "B2": per.get("B2", 0) + per.get("B8", 0), "B8": 0}
+
+
+def account_of(before: dict, snap: dict, device: int, top: int) -> dict:
+    """The memory account of a recorded window: ``before`` is a
+    ``torch.cuda.memory._snapshot()`` taken as recording began (the blocks
+    alive then), ``snap`` one taken at its end (its ``device_traces`` hold
+    every alloc and free in between). Replays the events from the blocks
+    alive before and returns the peak of the live bytes, the bytes alive
+    before, and the ``top`` largest blocks alive at the peak, each with
+    the innermost frame of the port that allocated it (``where``) and the
+    next one out in another function (``via``)."""
+    live = {}
+    for seg in before["segments"]:
+        if seg.get("device", device) != device:
+            continue
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"].startswith("active"):
+                live[blk.get("address", addr)] = (blk["size"], None)
+            addr += blk["size"]
+    base = sum(size for size, _ in live.values())
+    events = snap["device_traces"][device]
+
+    def replay(upto):
+        cur, total, peak, at = dict(live), base, base, -1
+        for i, e in enumerate(events[:upto]):
+            if e["action"] == "alloc":
+                cur[e["addr"]] = (e["size"], e.get("frames") or [])
+                total += e["size"]
+            elif e["action"] == "free_completed" and e["addr"] in cur:
+                total -= cur.pop(e["addr"])[0]
+            if total > peak:
+                peak, at = total, i
+        return cur, peak, at
+
+    _, peak, at = replay(len(events))
+    cur, _, _ = replay(at + 1)
+
+    def name(f):
+        path = f["filename"]
+        return (f"{path[path.rindex('cgcnet_tpu_torch'):]}:{f['line']} "
+                f"({f['name']})")
+
+    def where(frames):
+        if frames is None:
+            return "alive before the window", ""
+        own = [f for f in frames if "cgcnet_tpu_torch" in f["filename"]]
+        if not own:
+            return ("no frame of the port (the autograd engine: a built-in "
+                    "backward or a gradient sum)"), ""
+        outer = next((f for f in own[1:] if f["name"] != own[0]["name"]),
+                     None)
+        return name(own[0]), name(outer) if outer else ""
+
+    blocks = []
+    for size, frames in sorted(cur.values(), key=lambda v: -v[0])[:top]:
+        w, via = where(frames)
+        blocks.append({"gib": size / 2**30, "where": w, "via": via})
+    return {"peak_gib": peak / 2**30, "before_gib": base / 2**30,
+            "events": len(events), "blocks": blocks}
+
+
+@contextlib.contextmanager
+def memory_account(out: dict, top: int = ACCOUNT_BLOCKS):
+    """For the duration, record the caching allocator's history (Python
+    stacks of each allocation); after it — an error included, such as an
+    out-of-memory one — fill ``out`` with :func:`account_of` the window."""
+    import torch
+
+    dev = torch.cuda.current_device()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(
+        "all", context="alloc", stacks="python", max_entries=1_000_000)
+    try:
+        yield
+    finally:
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(None)
+        out.update(account_of(before, snap, dev, top))
+
+
+def peak_fit(points: list) -> dict:
+    """Least-squares line through (rows, peak GiB): the bytes a row and the
+    fixed GiB of a step's peak."""
+    import numpy as np
+
+    rows = np.array([r for r, _ in points], np.float64)
+    gib = np.array([g for _, g in points], np.float64)
+    slope, fixed = np.polyfit(rows, gib, 1)
+    resid = gib - (slope * rows + fixed)
+    return {"bytes_per_row": slope * 2**30, "fixed_gib": fixed,
+            "max_residual_gib": float(np.abs(resid).max())}
+
+
+def loss_hold(model, cfg_, inputs, what) -> float:
+    """The train-mode loss of one forward under no_grad (no dropout, the
+    running statistics left alone), kernels against the plain versions on
+    the card sharing the STATS_HELD kernels' statistics, at step_hold's
+    loss rule (``loss_rule``), unrouted; fails outside it. Returns the
+    kernels' loss."""
+    import math
+
+    import torch
+    from cgcnet_tpu_torch.parallel.mega_model import mega_forward
+
+    cfg_32 = cfg_.apply_overrides(["model.compute_dtype=float32"])
+
+    def loss(route, c):
+        with torch.no_grad(), sites_replaced(route):
+            logits = mega_forward(model, c.model, inputs, train=True)
+            return -torch.log_softmax(logits, -1)[1].item()
+
+    ker, plain, f32 = (loss(every_kernel, cfg_), loss(stats_shared, cfg_),
+                       loss(all_plain, cfg_32))
+    lim, frac = loss_rule(ker, plain, f32)
+    log(f"  {what} train-mode loss {ker:.6f} (kernels) vs {plain:.6f} (plain "
+        f"versions on the card, sharing the statistics of the STATS_HELD "
+        f"kernels), f32 plain {f32:.6f}; tol {lim:.3e} ({frac:.3f} of it)")
+    if not (frac <= 1.0 and math.isfinite(ker)):
+        raise SystemExit(f"{what}: train-mode loss, kernels vs plain versions")
+    return ker
+
+
+def ladder_rung(n: int, cfg, ckpt: Path, device, grad_hold: bool = False,
+                default: bool = False, account: bool = False,
+                holds: bool = True, seen: dict | None = None) -> dict:
+    """One rung of phase 14: a synthetic slide of ``n`` nuclei built for
+    the card, its band windows as BANDED_NUCLEI says; LADDER_STEPS
+    capacity steps (``capacity_per_step`` launches each, ``unbanded``
+    without windows; with ``account`` the first under ``memory_account``),
+    their median time and peak memory; with ``default`` LADDER_STEPS steps
+    of the default (no-chunk) step on the same slide; then, with
+    ``holds``, the eval logits and the train-mode loss held against the
+    plain versions (with ``grad_hold`` the full ``step_hold`` of phase
+    10); with ``seen``, one more forward and backward of the capacity step
+    whose kernel inputs ``slide_capture`` keeps there. Returns the rung's
+    numbers and launch counts."""
+    import torch
+    from cgcnet_tpu_torch.parallel.slide_setup import (
+        build_slide_inputs,
+        synthetic_slide,
+    )
+
+    what = f"{n} nuclei"
+    rows = slide_rows(n)
+    cap_cfg = cfg.apply_overrides(SLIDE_CAPACITY)
+    feats, coords = synthetic_slide(n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what earlier phases left allocated: a rung's own peak is above it
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.time()
+    build = build_slide_inputs(cap_cfg, feats, coords, 1, device)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    inputs = build.inputs
+    banded = inputs.win_base is not None and inputs.win_base_t is not None
+    if build.cap != rows or not build.bsr or banded != (n in BANDED_NUCLEI):
+        raise SystemExit(f"{what}: {build.cap} rows (want {rows}), block "
+                         f"tables {build.bsr}, band windows {banded}")
+    inputs_gib = torch.cuda.memory_allocated() / 2**30 - before
+    log(f"  {what}: {rows} rows, {build.edges} edges, blocks per row tile "
+        f"{inputs.blk_cols.shape[1]} / transpose {inputs.blk_cols_t.shape[1]}"
+        f", band windows {banded}; host build graph {build.t_graph_s:.3f} s, "
+        f"partition and tables {build.t_part_s:.3f} s, all with the upload "
+        f"and B1 {build_s:.3f} s; its inputs {inputs_gib:.3f} GiB on the "
+        f"card, which held {before:.3f} GiB before")
+    acct: dict = {}
+    per = capacity_per_step(rows)
+    per = per if banded else unbanded(per)
+    torch.cuda.reset_peak_memory_stats()
+    counts, ms, rec = slide_train_steps(
+        cap_cfg, ckpt, inputs, LADDER_STEPS, per, True, f"capacity {what}",
+        memory_account(acct) if account else None, warm=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {what}: the capacity steps' own peak {peak - before:.3f} GiB "
+        "(inputs included)")
+    out = {"nuclei": n, "rows": rows, "chunks": per["B5"],
+           "per_step": per, "edges": build.edges,
+           "graph_s": build.t_graph_s, "partition_s": build.t_part_s,
+           "build_s": build_s, "before_gib": before,
+           "inputs_gib": inputs_gib, "step_ms": ms, "times_ms": rec["times"],
+           "losses": rec["losses"], "peak_gib": peak,
+           "own_peak_gib": peak - before,
+           "counts": counts, "default_counts": expected({})}
+    if acct:
+        out["account"] = acct
+        log(f"  memory account of the first {what} step (caching allocator "
+            f"history): peak {acct['peak_gib']:.3f} GiB of live blocks "
+            f"({acct['before_gib']:.3f} GiB alive before the step; "
+            f"max_memory_allocated {peak:.3f} GiB); {acct['events']} events;"
+            " the largest blocks alive at the peak:")
+        for b in acct["blocks"]:
+            log(f"    {b['gib']:.3f} GiB  {b['where']}"
+                + (f"  via {b['via']}" if b["via"] else ""))
+    if default:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dcounts, dms, drec = slide_train_steps(
+            cfg, ckpt, inputs, LADDER_STEPS, SLIDE_TRAIN_PER_STEP if banded
+            else unbanded(SLIDE_TRAIN_PER_STEP), False,
+            f"default (no-chunk) {what}", warm=0)
+        dpeak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  {what}: the default steps' own peak {dpeak - before:.3f} GiB")
+        out.update(default_step_ms=dms, default_times_ms=drec["times"],
+                   default_peak_gib=dpeak,
+                   default_own_peak_gib=dpeak - before,
+                   default_counts=dcounts)
+    torch.cuda.empty_cache()
+    if holds:
+        torch.cuda.reset_peak_memory_stats()
+        model = slide_model(cap_cfg, ckpt, device)
+        logits_hold(model, cap_cfg, inputs, what)
+        out["train_loss"] = loss_hold(model, cap_cfg, inputs, what)
+        if grad_hold:
+            require_step(step_hold(model, cap_cfg, inputs, True,
+                                   f"capacity {what}"), f"capacity {what}")
+        del model
+        out["holds_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  {what}: the holds peaked at {out['holds_peak_gib']:.3f} GiB "
+            f"({out['holds_peak_gib'] - before:.3f} GiB their own)")
+    if seen is not None:
+        model = slide_model(cap_cfg, ckpt, device).train()
+        with slide_capture(seen):
+            slide_grads(model, cap_cfg, inputs, True)
+        del model
+    del inputs, build
+    torch.cuda.empty_cache()
+    return out
+
+
+def ladder_cli(ckpt: Path, device) -> dict:
+    """cli.slide at LADDER_TOP nuclei with the capacity recipe and
+    ``--train-epochs 1`` (one build, two forwards, one capacity step, one
+    forward after it), with its launches, losses, post-fine-tune logits and
+    peak memory."""
+    import numpy as np
+    import torch
+    from cgcnet_tpu_torch.cli import slide as slide_cli
+
+    rows = slide_rows(LADDER_TOP)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = slide_cli.main([
+        "--synthetic", "--nuclei", str(LADDER_TOP), "--shards", "1",
+        "--train-epochs", "1", "--ckpt", str(ckpt),
+        *(["--cpu"] if device.type == "cpu" else []),
+        *SLIDE_DTYPE, *SLIDE_CAPACITY])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    banded = LADDER_TOP in BANDED_NUCLEI
+    fwd, per = SLIDE_FORWARD, capacity_per_step(rows)
+    fwd, per = (fwd, per) if banded else (unbanded(fwd), unbanded(per))
+    want = {k: SLIDE_BUILD.get(k, 0) + 3 * fwd.get(k, 0) + per.get(k, 0)
+            for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  cli.slide --nuclei {LADDER_TOP} --train-epochs 1 (the capacity "
+        f"recipe): {wall:.1f} s wall; graph {res['t_graph_s']:.3f} s, "
+        f"partition {res['t_part_s']:.3f} s (host clock); losses "
+        f"{res['losses']}, post-fine-tune logits "
+        f"{res['logits_finetuned'].tolist()}; peak memory {peak:.3f} GiB; "
+        f"launches {counts}")
+    if counts != want:
+        raise SystemExit(f"cli.slide at {LADDER_TOP}: launches {counts} != "
+                         f"{want}")
+    if (res["cap"] != rows or not res["bsr"]
+            or not np.isfinite(res["losses"]).all()
+            or not np.isfinite(res["logits_finetuned"]).all()
+            or res["logits_finetuned"].shape != (3,)):
+        raise SystemExit(f"cli.slide at {LADDER_TOP}: {res}")
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "graph_s": res["t_graph_s"],
+            "partition_s": res["t_part_s"], "losses": res["losses"],
+            "logits_finetuned": res["logits_finetuned"].tolist(),
+            "peak_gib": peak, "counts": counts}
+
+
+def ladder_kernels(seen: dict, n: int) -> list[dict]:
+    """B2's wide legs (F >= BAND_MIN_F: A @ S, and its transpose where its
+    shapes differ, B8's legs on the banded 100k slide) as the capacity step
+    of the ``n``-nuclei rung gave them (``seen``), held against the plain
+    version and timed like phase 3, in bf16 (the path's type)."""
+    import torch
+    from cgcnet_tpu_torch.ops import bsr
+
+    t = bsr.TILE
+    results = []
+    for (key, _, _), (args, _) in seen.items():
+        if key != "B2" or args[2].shape[-1] < bsr.BAND_MIN_F:
+            continue
+        vals, bc_, x, slots = args
+        _, r, m = bc_.shape
+        nc, f = x.shape[1], x.shape[2]
+        live = vals.reshape(*vals.shape[:3], -1).ne(0).any(-1)
+        nnzb = int(live.sum().item())
+        walked = int(slots.sum().item())
+        leg = "A^T" if results else "A@S"  # the forward's leg comes first
+        record_kernel(
+            results, f"B2 bsr_matmul int8 {leg} bf16 {n} nuclei N={nc} M={m} "
+            f"live slots {walked} of {r * m} F={f}", "B2", "bfloat16",
+            bsr.bsr_matmul(vals, bc_, x, slots),
+            bsr.bsr_matmul_plain(vals, bc_, x, slots),
+            lambda: bsr.bsr_matmul(vals, bc_, x, slots),
+            lambda: bsr.bsr_matmul_plain(vals, bc_, x),
+            bytes_=nnzb * t * t + r * m * 4 + (nc + r * t) * f * x.element_size(),
+            ops=2 * nnzb * t * t * f,
+            library=lambda: _bsr_library_call(vals.to(x.dtype), bc_,
+                                              live.float(), x),
+            source="cgcnet_tpu_torch/csrc/bsr_matmul.cu",
+            replaces="cgcnet_tpu/ops/pallas/bsr_kernel.py:400",
+            paths=SLIDE_PATHS, reps=10, plain_reps=3)
+        torch.cuda.empty_cache()
+    if not results:
+        raise SystemExit(f"{n} nuclei: no wide B2 leg captured")
+    return results
+
+
+def ladder_phase(tmp: Path, device, ckpt: Path) -> dict:
+    """Phase 14 (see the module docstring). Returns the ladder's numbers
+    and its launch counts per path."""
+    import torch
+    from cgcnet_tpu_torch.config import Config
+
+    log(f"phase 14: the capacity ladder ({', '.join(map(str, LADDER_NUCLEI))}"
+        f" nuclei, bf16, {' '.join(SLIDE_CAPACITY)}; {card_line()})")
+    t_phase = time.time()
+    cfg = Config().apply_overrides(SLIDE_DTYPE)
+    torch.cuda.empty_cache()
+    paths = {"slide_ladder": expected({}), "slide_ladder_default": expected({})}
+    rungs, kernels = [], []
+    for n in (SLIDE_NUCLEI, *LADDER_NUCLEI):
+        # phase 10 holds the 100k slide: here its steps alone, for the fit
+        seen = {} if n == LADDER_KERNELS else None
+        r = ladder_rung(n, cfg, ckpt, device, grad_hold=n == LADDER_GRAD_HOLD,
+                        default=n == LADDER_DEFAULT, account=n == LADDER_TOP,
+                        holds=n in LADDER_NUCLEI, seen=seen)
+        if seen is not None:
+            kernels += ladder_kernels(seen, n)
+            # slide_capture's shims hold ``seen`` in a reference cycle
+            del seen
+            gc.collect()
+            torch.cuda.empty_cache()
+        _add(paths["slide_ladder"], r.pop("counts"))
+        _add(paths["slide_ladder_default"], r.pop("default_counts"))
+        rungs.append(r)
+    cli = ladder_cli(ckpt, device)
+    paths["slide_ladder_cli"] = cli.pop("counts")
+    fit = peak_fit([(r["rows"], r["own_peak_gib"]) for r in rungs])
+    wall = time.time() - t_phase
+    log(f"  capacity step's own peak = {fit['fixed_gib']:.3f} GiB + "
+        f"{fit['bytes_per_row']:.1f} bytes a row (least squares over "
+        f"{len(rungs)} rungs, worst residual {fit['max_residual_gib']:.3f} "
+        f"GiB); phase 14 wall {wall:.1f} s")
+    summary = {"card": card_line(), "fit": fit, "cli": cli, "rungs": [
+        {k: v for k, v in r.items() if k not in ("account", "per_step")}
+        for r in rungs]}
+    log("  ladder " + json.dumps(summary))
+    return {"ladder": {**summary, "account": next(
+        (r["account"] for r in rungs if "account" in r), None),
+        "wall_s": wall}, "paths": paths, "kernels": kernels}
 
 
 # the kernels whose compiler report phase 2 must hold: the bf16
