@@ -490,6 +490,9 @@ def collate(
 
 
 _STICKY_LOCK = threading.Lock()
+# quantized per-batch block capacities (attach_bsr_meta)
+BSR_CAPS = (4, 6, 8, 12, 16)
+BSR_META = (("blk_cols", "blk_mask"), ("blk_cols_t", "blk_mask_t"))
 
 
 def attach_bsr_meta(
@@ -512,21 +515,30 @@ def attach_bsr_meta(
 
     ``quantize=False`` uses exactly ``bsr_blocks`` slots and RAISES on
     overflow — required when multiple processes each build a shard of one
-    global batch and must agree on every shape (multi-host loading)."""
+    global batch and must agree on every shape (multi-host loading).
+
+    The two halves: :func:`scan_bsr_meta` (the batch's own, any thread) and
+    :func:`finish_bsr_meta` (the caps; the loader calls it in yield order)."""
+    meta = finish_bsr_meta(scan_bsr_meta(batch, bsr_blocks, quantize),
+                           bsr_blocks, quantize, sticky_caps)
+    for names in BSR_META:
+        for k in names:
+            batch.pop(k, None)
+    batch.update(meta)
+
+
+def scan_bsr_meta(batch: dict, bsr_blocks: int, quantize: bool = True) -> list:
+    """Each direction's block metadata at the widest usable cap and its need
+    ([(cols, masks, need)] forward then transpose): ONE scan per element,
+    the need read off the same pass (``strict=False``); a function of the
+    batch alone."""
     bsr_block_meta = (
         native.bsr_block_meta if native.available() else bsr_block_meta_np
     )
-
     nb = batch["x"].shape[0]
-    caps = (4, 6, 8, 12, 16)
-    for di, (src, msk, cname, mname) in enumerate((
-        ("nbr", "nbr_mask", "blk_cols", "blk_mask"),
-        ("nbr_t", "nbr_t_mask", "blk_cols_t", "blk_mask_t"),
-    )):
-        # ONE scan per element: build meta at the widest usable cap and read
-        # the need off the same pass, then slice down to the quantized cap
-        # (the extra slots are zero-padding by construction)
-        cap_max = bsr_blocks if not quantize else max(caps[-1], 1)
+    cap_max = bsr_blocks if not quantize else max(BSR_CAPS[-1], 1)
+    scans = []
+    for src, msk in (("nbr", "nbr_mask"), ("nbr_t", "nbr_t_mask")):
         cols, masks, need = [], [], 0
         for bi in range(nb):
             c, m, nd = bsr_block_meta(
@@ -535,16 +547,30 @@ def attach_bsr_meta(
             cols.append(c)
             masks.append(m)
             need = max(need, nd)
+        scans.append((cols, masks, need))
+    return scans
+
+
+def finish_bsr_meta(
+    scans: list, bsr_blocks: int, quantize: bool = True,
+    sticky_caps: dict | None = None,
+) -> dict:
+    """The metadata arrays of :func:`scan_bsr_meta`'s scans sliced down to
+    each direction's cap (grown into ``sticky_caps``), or {} when a
+    direction's need is past the ceiling (with a warning)."""
+    meta = {}
+    for di, ((cols, masks, need), (cname, mname)) in enumerate(
+            zip(scans, BSR_META)):
+        # the extra slots past the need are zero-padding by construction
         if quantize:
             floor = sticky_caps.get(di, 0) if sticky_caps is not None else 0
-            cap = next((c for c in caps if c >= max(need, floor)), None)
+            cap = next((c for c in BSR_CAPS if c >= max(need, floor)), None)
             usable = cap is not None and cap <= max(bsr_blocks, 4)
             if sticky_caps is not None and usable:
                 # record only USABLE caps (an oversized batch must not poison
                 # the floor and push every later batch past the ceiling); the
-                # read-max-write must be atomic or a stale read from a
-                # concurrent loader worker could SHRINK the floor (= a fresh
-                # shape)
+                # read-max-write is atomic so a concurrent caller cannot
+                # SHRINK the floor (= a fresh shape)
                 with _STICKY_LOCK:
                     sticky_caps[di] = max(sticky_caps.get(di, 0), cap)
         else:
@@ -561,10 +587,9 @@ def attach_bsr_meta(
                 f"graph needs {need} BSR blocks/row-tile > cap "
                 f"{bsr_blocks}; batch carries no BSR metadata (raise "
                 "data.bsr_blocks or enable data.spatial_sort)",
-                stacklevel=2,
+                stacklevel=3,
             )
-            for k in ("blk_cols", "blk_mask", "blk_cols_t", "blk_mask_t"):
-                batch.pop(k, None)
-            return
-        batch[cname] = np.ascontiguousarray(np.stack(cols)[:, :, :cap])
-        batch[mname] = np.ascontiguousarray(np.stack(masks)[:, :, :cap])
+            return {}
+        meta[cname] = np.ascontiguousarray(np.stack(cols)[:, :, :cap])
+        meta[mname] = np.ascontiguousarray(np.stack(masks)[:, :, :cap])
+    return meta

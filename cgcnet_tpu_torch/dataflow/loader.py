@@ -7,10 +7,16 @@ consumer copies them to the device with ``non_blocking=True``, so the copy of
 batch i+1 overlaps the model's work on batch i.
 
 Determinism: batch composition is a pure function of (seed, epoch) and each
-sample's graph content of (seed, patch, epoch), whatever the thread
-scheduling. The one scheduling-dependent quantity is padding width: the
-grow-only sticky BSR caps mean a batch's block-slot count can differ from
-run to run (the extra slots are zero blocks; numerics are unaffected).
+sample's graph content of (seed, patch, epoch), and every array of a batch,
+its padding widths included, is a pure function of the seed and of the
+(epoch, position) sequence the loader has yielded up to it — whatever
+``num_workers`` and the thread scheduling. Batches share two pieces of
+grow-only state: the sticky BSR caps and the dataset's nominal transpose
+width. Workers never change either; the consumer updates both in yield
+order (``_in_order``): it finishes each batch's block metadata there, and
+it builds again a batch that a worker built at a width an earlier batch
+has since widened. So a batch at any worker count equals the one worker's
+batch bit for bit.
 
 Process-sharded mode (``rank``/``world``, one process per rank of a data
 axis): every rank computes the same epoch order from (seed, epoch) and
@@ -25,6 +31,7 @@ Port of ``cgcnet_tpu/dataflow/loader.py`` without the JAX wire packing.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -36,8 +43,9 @@ import torch
 from cgcnet_tpu_torch.core.graph import CellGraph
 from cgcnet_tpu_torch.dataflow.dataset import (
     NucleiGraphDataset,
-    attach_bsr_meta,
     collate,
+    finish_bsr_meta,
+    scan_bsr_meta,
 )
 
 
@@ -129,28 +137,39 @@ class GraphLoader:
             cap *= 2
         return cap
 
-    def build_batch(self, idxs, epoch: int) -> dict[str, np.ndarray]:
-        """Collated numpy batch (with BSR metadata) of dataset items
-        ``idxs`` at ``epoch``."""
+    def build_batch(self, idxs, epoch: int, width: int) -> tuple | None:
+        """A worker's half of the batch of dataset items ``idxs`` at
+        ``epoch``: the collated numpy arrays at transpose width ``width``
+        and the scan of their block metadata (``scan_bsr_meta``, or None
+        without ``bsr_blocks``); None when ``width`` overflows on the fast
+        path. A function of its arguments alone."""
         ds = self.dataset
-        sharded = self.world > 1
         if not ds.supports_fast_path():
             batch = collate([ds.get(int(i), epoch) for i in idxs], self.capacity, 0)
         else:
-            batch = self._build_fast(idxs, epoch)
-        if self.bsr_blocks > 0:
-            attach_bsr_meta(batch, self.bsr_blocks, not sharded,
-                            sticky_caps=None if sharded else self._sticky_caps)
-        return batch
+            batch = self._build_fast(idxs, epoch, width)
+            if batch is None:
+                return None
+        return batch, self._scan(batch)
 
-    def _build_fast(self, idxs, epoch: int) -> dict[str, np.ndarray]:
+    def _scan(self, batch: dict) -> list | None:
+        if self.bsr_blocks <= 0:
+            return None
+        return scan_bsr_meta(batch, self.bsr_blocks, self.world == 1)
+
+    def _host(self, idxs, epoch: int, width: int, pin: bool):
+        """:meth:`build_batch` with its arrays as CPU tensors (pinned when
+        ``pin``); None on overflow."""
+        built = self.build_batch(idxs, epoch, width)
+        return built and (_tensors(built[0], pin), built[1])
+
+    def _build_fast(self, idxs, epoch: int, kt: int) -> dict | None:
         # every patch is ONE GIL-free native call writing straight into the
         # batch buffers (dataset.fill_into)
         ds = self.dataset
         b = len(idxs)
         cap = self.capacity or self.bucket_capacity(idxs, epoch)
-        k, kt = ds.cfg.max_neighbours, ds.transpose_width
-        f = ds.cfg.num_features
+        k, f = ds.cfg.max_neighbours, ds.cfg.num_features
         batch = {
             "x": np.empty((b, cap, f), np.float32),
             "nbr": np.empty((b, cap, k), np.int32),
@@ -173,15 +192,32 @@ class GraphLoader:
                         "transpose width overflow in process-sharded "
                         "loading; raise dataset.transpose_width so every "
                         "rank builds the same shapes")
-                # transpose width overflow: the numpy path widens this batch;
-                # widen the nominal width so later batches stay fast
-                ds.transpose_width = min(kt * 2, 1024)
-                return collate(
-                    [ds.get(int(j), epoch) for j in idxs], self.capacity, 0
-                )
+                return None
             batch["n_nodes"][bi] = n
             batch["y"][bi] = y
         return batch
+
+    def _in_order(self, built, idxs, epoch: int, width: int, pin: bool):
+        """The consumer's half of a batch, called in yield order: the
+        shared state changes here only (module docstring)."""
+        ds = self.dataset
+        if width != ds.transpose_width and ds.supports_fast_path():
+            # submitted before an earlier batch widened the width
+            width = ds.transpose_width
+            built = self._host(idxs, epoch, width, pin)
+        if built is None:
+            # transpose width overflow: widen the nominal width so later
+            # batches stay fast, and take this one by the numpy path
+            ds.transpose_width = min(width * 2, 1024)
+            batch = collate([ds.get(int(j), epoch) for j in idxs],
+                            self.capacity, 0)
+            built = _tensors(batch, pin), self._scan(batch)
+        host, scan = built
+        if scan is not None:
+            host.update(_tensors(finish_bsr_meta(
+                scan, self.bsr_blocks, self.world == 1,
+                self._sticky_caps if self.world == 1 else None), pin))
+        return CellGraph(**host)
 
     def epoch(self, epoch: int = 0) -> Iterator[CellGraph]:
         """Yield the batches of ``epoch`` (the epoch selects the sampling
@@ -199,19 +235,31 @@ class GraphLoader:
             batches = [b[self.rank * per:(self.rank + 1) * per]
                        for b in batches]
         pin = self.device.type == "cuda"
-
-        def task(idxs) -> CellGraph:
-            return CellGraph.from_numpy(self.build_batch(idxs, epoch), pin=pin)
-
+        ds = self.dataset
         # batches in flight: every worker busy, and at least 3 so the copy
         # of batch i+1 is queued while the model runs batch i
         window = max(self.num_workers, 3)
         with ThreadPoolExecutor(self.num_workers) as ex:
             futs: deque = deque()
             submitted = 0
-            for _ in range(len(batches)):
+            for idxs in batches:
                 while submitted < len(batches) and len(futs) < window:
-                    futs.append(ex.submit(task, batches[submitted]))
+                    width = ds.transpose_width
+                    futs.append((ex.submit(self._host, batches[submitted],
+                                           epoch, width, pin), width))
                     submitted += 1
-                host = futs.popleft().result()
+                fut, width = futs.popleft()
+                host = self._in_order(fut.result(), idxs, epoch, width, pin)
                 yield host.to(self.device, non_blocking=pin)
+
+
+def _tensors(arrays: dict, pin: bool) -> dict:
+    """CPU tensors of the ``CellGraph`` fields among ``arrays``, pinned when
+    ``pin`` (for a later non-blocking device copy)."""
+    names = {f.name for f in dataclasses.fields(CellGraph)}
+    out = {}
+    for k, a in arrays.items():
+        if k in names:
+            t = torch.from_numpy(a)
+            out[k] = t.pin_memory() if pin else t
+    return out

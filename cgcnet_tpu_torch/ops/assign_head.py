@@ -53,6 +53,7 @@ launches ``csrc/assign_head.cu`` or ``csrc/assign_tail.cu`` for CUDA tensors.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -256,10 +257,22 @@ def assign_head_softmax_pre(
         return s, s.transpose(1, 2)
     s = _launch_head(True, x12, p, k12, k3f, const, n_nodes, c_out)
     assign_head_softmax_pre.launches += 1
+    _B4_VARIANTS[head_product(p.dtype)] += 1
     return s, s.transpose(1, 2)
 
 
 assign_head_softmax_pre.launches = 0
+# module objects, not looked up through the wrappers' names: a shim in a
+# wrapper's place records nothing
+assign_head_softmax_pre.variants = _B4_VARIANTS = Counter()
+
+
+def head_product(dtype: torch.dtype) -> str:
+    """The kernel of B4's, B6's and B9a's product for activations of
+    ``dtype`` (``csrc/assign_head.cu``): the tensor cores in bf16, the CUDA
+    cores in f32. Each of the three wrappers counts its launches by it in
+    ``variants``."""
+    return "gemm_tc_kernel" if dtype == torch.bfloat16 else "gemm_kernel"
 
 
 @torch.library.custom_op("cgcnet_tpu_torch::assign_head_softmax_pre",
@@ -324,10 +337,12 @@ def assign_head_softmax(
         return assign_head_softmax_op(x12, h3a, k12, k3f, const, n_nodes)
     s = _launch_head(False, x12, h3a, k12, k3f, const, n_nodes)
     assign_head_softmax.launches += 1
+    _B6_VARIANTS[head_product(h3a.dtype)] += 1
     return s
 
 
 assign_head_softmax.launches = 0
+assign_head_softmax.variants = _B6_VARIANTS = Counter()
 
 
 @torch.library.custom_op("cgcnet_tpu_torch::assign_head_softmax",
@@ -822,10 +837,12 @@ def assign_head_softmax_pre_lin(x12, x3, kc3, b3, k12, k3f, const, n_nodes):
         _cuda.DTYPE_CODES[dt], x3.device.index, _cuda.stream_of(x3),
     )
     assign_head_softmax_pre_lin.launches += 1
+    _B9A_VARIANTS[head_product(dt)] += 1
     return s
 
 
 assign_head_softmax_pre_lin.launches = 0
+assign_head_softmax_pre_lin.variants = _B9A_VARIANTS = Counter()
 
 
 def l2relu_stats_lin_plain(x3, kc3, b3, n_nodes):

@@ -20,7 +20,9 @@ gather over the nonzeros.
 Each device function has a plain PyTorch version of the same signature
 (``*_plain``). The wrapper takes the plain version only for tensors that lie
 on the CPU; for CUDA tensors it launches the hand-written kernel in
-``csrc/`` or raises. ``launches`` on each wrapper counts kernel launches.
+``csrc/`` or raises. ``launches`` on each wrapper counts kernel launches;
+``variants`` on B2 and B8, which pick a kernel by dtype and width, counts
+them by the ``__global__`` kernel the launch runs.
 
 Replaces ``cgcnet_tpu/ops/pallas/bsr_kernel.py`` (bsr_blocks_needed,
 bsr_block_meta, bsr_build_blocks, bsr_matmul, bsr_gather_sum,
@@ -28,6 +30,8 @@ bsr_matmul_banded and its window tables).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -366,10 +370,20 @@ def bsr_matmul(
         x.device.index, _cuda.stream_of(x),
     )
     bsr_matmul.launches += 1
+    _B2_VARIANTS[bsr_matmul_variant(x.dtype)] += 1
     return out
 
 
 bsr_matmul.launches = 0
+# a module object, not looked up through the wrapper's name: a shim in the
+# wrapper's place records nothing
+bsr_matmul.variants = _B2_VARIANTS = Counter()
+
+
+def bsr_matmul_variant(dtype: torch.dtype) -> str:
+    """The kernel B2 runs for x of ``dtype`` (``csrc/bsr_matmul.cu``)."""
+    return ("bsr_matmul_tc_kernel" if dtype == torch.bfloat16
+            else "bsr_matmul_f32_kernel")
 
 
 @torch.library.custom_op("cgcnet_tpu_torch::bsr_matmul", mutates_args=())
@@ -737,6 +751,7 @@ def bsr_matmul_banded(
         x.device.index, _cuda.stream_of(x),
     )
     bsr_matmul_banded.launches += 1
+    _B8_VARIANTS[banded_variant(x.dtype, f)] += 1
     if halo_win is not None and halo_win.shape[-1]:
         # the TPU's halo-window variant (bsr_kernel.py:1097): the same
         # kernel, counted apart as well
@@ -746,3 +761,11 @@ def bsr_matmul_banded(
 
 bsr_matmul_banded.launches = 0
 bsr_matmul_banded.halo_window_launches = 0
+bsr_matmul_banded.variants = _B8_VARIANTS = Counter()
+
+
+def banded_variant(dtype: torch.dtype, f: int) -> str:
+    """The kernel B8 runs for x of ``dtype`` and ``f`` columns
+    (``csrc/bsr_banded.cu``: the tensor cores for bf16 at F >= 128)."""
+    return ("banded_tc_kernel" if dtype == torch.bfloat16 and f >= TILE
+            else "banded_kernel")

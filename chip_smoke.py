@@ -157,17 +157,21 @@ Phases, each fatal on failure (exit code != 0):
    the peak memory after ``reset_peak_memory_stats``, the host build's
    graph and partition seconds; at each rung the eval logits held against
    the plain versions at phase 8's rule and the train-mode loss of one
-   forward at the step holds' loss rule (``loss_hold``), and at
-   ``LADDER_GRAD_HOLD``
-   phase 10's full step hold, with the holds' peak memory; the default
-   (no-chunk) step at ``LADDER_DEFAULT`` (3 steps, its time and peak); at
-   ``LADDER_KERNELS`` B2's wide legs of the capacity step against the
-   plain version, timed like phase 3 (``ladder_kernels``); at the top rung
-   the first step under the caching allocator's history
-   (``memory_account``: the ``ACCOUNT_BLOCKS`` largest blocks alive at
-   the peak, each with the port's file:line that allocated it), then
-   ``cli.slide.main`` at 1M nuclei with the recipe and ``--train-epochs
-   1`` (finite losses and post-fine-tune logits, its launches and peak);
+   forward at the step holds' loss rule (``loss_hold``), and at each rung
+   of ``LADDER_GRAD_HOLD`` (every rung) phase 10's full step hold, with
+   the holds' peak memory; the default (no-chunk) step at
+   ``LADDER_DEFAULT`` (3 steps, its time and peak); at ``LADDER_KERNELS``
+   B2's wide legs of the capacity step against the plain version, timed
+   like phase 3 (``ladder_kernels``); at the top rung the first step under
+   the caching allocator's history (``memory_account``: the
+   ``ACCOUNT_BLOCKS`` largest blocks alive at the peak, each with the
+   port's file:line that allocated it), B9a (its call over every row),
+   B9b (with the statistics hold against the exact sums and its two
+   witnesses) and B5 (each capacity chunk) against their plain versions
+   on the rung's own captured inputs, timed like phase 3
+   (``ladder_top_kernels``), then ``cli.slide.main`` at 1M nuclei with
+   the recipe and ``--train-epochs 1`` (finite losses and post-fine-tune
+   logits, its launches and peak);
    a least-squares fit of the capacity step's peak over the rungs and the
    100k slide's steps run again here (phase 10 holds them; its own peak is
    read while phases 8-10 keep the kernel inputs they captured) of each
@@ -175,7 +179,26 @@ Phases, each fatal on failure (exit code != 0):
    bytes a row and fixed GiB; every number beside the card's name and
    power limit.
    Its launch counts are the paths ``slide_ladder``,
-   ``slide_ladder_default`` and ``slide_ladder_cli``.
+   ``slide_ladder_default`` and ``slide_ladder_cli``;
+15. the slide CLI's defaults: ``Config()`` (f32), ``SLIDE_NUCLEI`` (the
+   CLI's default ``--nuclei``), one shard, phase 4's checkpoint. In f32 B8
+   takes no leg, so each of its legs runs on f32 B2 at F = 1140
+   (``F32_FORWARD``, ``F32_TRAIN_PER_STEP``, ``F32_CAP_PER_STEP``):
+   ``cli.slide.main --slides 2`` with no dtype override (B1 = 2 per
+   build, B2 = 4 and B4 = 1 per forward, B8 = 0), the forward's CUDA-event
+   time and its logits against the plain versions on the card at
+   ``LOGIT_ATOL``/``LOGIT_RTOL``; the default (no-chunk) step and the
+   capacity recipe (``SLIDE_CAPACITY`` without ``SLIDE_DTYPE``: B9a and
+   B9b on their f32 legs), each held first — one step's loss at the f32
+   logit rule and its gradients at ``GRAD_REL``/``GRAD_FLOOR``, nothing
+   widened, on the plain step replayed with the kernel step's readout
+   routing within ``READOUT_STEPS``/``READOUT_SHARE``
+   (``f32_step_hold``) — then a few steps (launches per step, finite
+   losses, every parameter and running statistic moved, the median step
+   time by CUDA events, the peak memory); then one ``cli.slide
+   --train-epochs 1 --out`` round trip, the written file served again.
+   Its launch counts are the paths ``slide_f32_serve``,
+   ``slide_f32_train`` and ``slide_f32_capacity``.
 
 The statistics hold runs after the step holds of phases 9 and 10 that
 rest on it (it reads inputs those phases capture): a run whose statistics
@@ -311,7 +334,8 @@ PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest",
                *ENTRY_PATHS, "data_parallel", "dryrun_dp")
 SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity",
                "slide_shards", "dryrun_slide", "slide_ladder",
-               "slide_ladder_default", "slide_ladder_cli")
+               "slide_ladder_default", "slide_ladder_cli", "slide_f32_serve",
+               "slide_f32_train", "slide_f32_capacity")
 # phase 11: the slide over SHARDS ranks sharing the one card over gloo
 # (parallel/mesh.py's backend rule), SHARD_STEPS training steps; a rank that
 # waits on the others longer than SHARD_TIMEOUT_S fails, and so the run
@@ -346,12 +370,13 @@ PROFILE_KERNELS = {"B1": ("build_blocks_kernel",),
 # 100k (BASELINE.md, benchmarks/slide_scale_r5.json), LADDER_STEPS steps a
 # rung; the default (no-chunk) step at LADDER_DEFAULT nuclei, the largest
 # rung where the JAX package's default fit; phase 10's full step hold at
-# LADDER_GRAD_HOLD; the memory account (ACCOUNT_BLOCKS blocks) and one
-# cli.slide --train-epochs 1 run at the top rung
+# each rung of LADDER_GRAD_HOLD; the memory account (ACCOUNT_BLOCKS
+# blocks), B9a, B9b (with the statistics hold) and B5 against their plain
+# versions, and one cli.slide --train-epochs 1 run at the top rung
 LADDER_NUCLEI = (500_000, 750_000, 1_000_000)
 LADDER_STEPS = 3        # the step time is their median, the first included
 LADDER_DEFAULT = 750_000
-LADDER_GRAD_HOLD = 500_000
+LADDER_GRAD_HOLD = LADDER_NUCLEI
 LADDER_TOP = LADDER_NUCLEI[-1]
 ACCOUNT_BLOCKS = 10
 # the slides whose one-shard tables carry B8's band windows: a super tile's
@@ -363,6 +388,17 @@ BANDED_NUCLEI = (SLIDE_NUCLEI,)
 # the rung whose capacity step's wide B2 legs (A @ S and its transpose,
 # F = 1140, B8's legs on the 100k slide) are held and timed like phase 3
 LADDER_KERNELS = 500_000
+# phase 15: the slide CLI's defaults — Config() (f32), SLIDE_NUCLEI, one
+# shard. In f32 B8 takes no leg (``ops/ell.py: _banded_on`` and the
+# ``PoolAggregate`` branch of ``parallel/mega_model.py`` take it for 2-byte
+# activations only, as the JAX package's ``ops/ell.py:259``), so each B8
+# leg of the bf16 paths runs on f32 B2 at F = 1140 (``unbanded``)
+F32_STREAM = 2          # slides of its cli.slide --slides stream
+F32_TRAIN_STEPS = 4
+F32_CAP_STEPS = 3
+F32_FORWARD = {"B2": 4, "B4": 1}
+F32_TRAIN_PER_STEP = {"B2": 7, "B3": 1, "B4": 1, "B5": 1}
+F32_CAP_PER_STEP = {"B2": 10, "B5": 2, "B9a": 5, "B9b": 1}
 
 
 def log(msg: str) -> None:
@@ -1541,25 +1577,29 @@ def slide_model(cfg, ckpt, device):
 
 def logits_hold(model, cfg, inputs, what):
     """The eval forward's logits, kernels against the plain versions on the
-    card (under no_grad), at the f32 rule widened by BF16_WIDEN x the plain
-    bf16 vs f32 distance (phase 8's rule); fails outside it or when not
-    finite. Returns the kernels' logits."""
+    card (under no_grad), at the f32 rule, in bf16 widened by BF16_WIDEN x
+    the plain bf16 vs f32 distance (phase 8's rule); fails outside it or
+    when not finite. Returns the kernels' logits."""
     import torch
     from cgcnet_tpu_torch.parallel.mega_model import mega_forward
 
+    f32 = cfg.model.compute_dtype == "float32"
     cfg32 = cfg.apply_overrides(["model.compute_dtype=float32"])
     with torch.no_grad():
         logits = mega_forward(model, cfg.model, inputs)
         with sites_replaced(all_plain):
             plain_logits = mega_forward(model, cfg.model, inputs)
-            plain32 = mega_forward(model, cfg32.model, inputs)
+            plain32 = (plain_logits if f32
+                       else mega_forward(model, cfg32.model, inputs))
     err = (logits - plain_logits).abs().max().item()
     spread = BF16_WIDEN * (plain_logits - plain32).abs().max().item()
     lim = LOGIT_ATOL + LOGIT_RTOL * plain_logits.abs().max().item() + spread
     log(f"  {what} logits {logits.tolist()} vs plain versions on the card "
-        f"{plain_logits.tolist()} (f32 plain {plain32.tolist()}): max abs "
-        f"diff {err:.3e} (tol {lim:.3e}: the f32 rule plus {BF16_WIDEN:g}x "
-        f"the plain bf16 vs f32 distance, {spread:.3e})")
+        f"{plain_logits.tolist()}"
+        + (f": max abs diff {err:.3e} (tol {lim:.3e}: the f32 rule)" if f32
+           else f" (f32 plain {plain32.tolist()}): max abs diff {err:.3e} "
+           f"(tol {lim:.3e}: the f32 rule plus {BF16_WIDEN:g}x the plain "
+           f"bf16 vs f32 distance, {spread:.3e})"))
     if not err <= lim or not torch_isfinite(logits):
         raise SystemExit(f"{what} logits: kernels vs plain versions")
     return logits
@@ -1789,9 +1829,9 @@ def slide_phases(tmp: Path, device, ckpt: Path, seen: dict) -> dict:
 
 
 def stats_hold(p3, n3, lin9, n9) -> dict:
-    """B3 (on ``p3``) and B9b (on ``lin9`` = (x3, kc3, b3)) against the
-    exact statistics, beside the plain versions' f32 sums and the two
-    witnesses; fails unless the kernels and witness (i) are within
+    """B3 (on ``p3``; None: B9b alone) and B9b (on ``lin9`` = (x3, kc3, b3))
+    against the exact statistics, beside the plain versions' f32 sums and
+    the two witnesses; fails unless the kernels and witness (i) are within
     ``ah.STATS_TOL`` and witness (ii) is not. Returns the distances."""
     import torch
     from cgcnet_tpu_torch.ops import assign_head as ah
@@ -1799,7 +1839,7 @@ def stats_hold(p3, n3, lin9, n9) -> dict:
     x3, kc3, b3 = lin9
     tol = ah.STATS_TOL
     cases = {
-        "B3": (ah.l2relu_stats_reference(p3, n3), {
+        "B3": None if p3 is None else (ah.l2relu_stats_reference(p3, n3), {
             "kernel": lambda: ah.l2relu_stats(p3, n3),
             "plain": lambda: ah.l2relu_stats_plain(p3, n3),
             "witness (i): row norm as two half-row sums": lambda:
@@ -1820,14 +1860,17 @@ def stats_hold(p3, n3, lin9, n9) -> dict:
         }),
     }
     out = {}
-    for key, (ref, runs) in cases.items():
+    for key, case in cases.items():
+        if case is None:
+            continue
+        ref, runs = case
         dist = {}
         for what, fn in runs.items():
             dist[what] = ah.stats_distance(fn(), ref)
             torch.cuda.empty_cache()
         kern, w1, w2 = (dist[k] for k in dist if k != "plain")
         ok = kern <= tol and w1 <= tol and w2 > tol
-        log(f"  statistics hold {key} (bf16, {p3.shape[1]} rows): max over "
+        log(f"  statistics hold {key} (bf16, {x3.shape[1]} rows): max over "
             f"columns of |stat - exact| / |exact|, tol {tol:.3e}: "
             + "; ".join(f"{k} {v:.3e}" for k, v in dist.items())
             + f" -> {'ok' if ok else 'FAIL'}")
@@ -1839,6 +1882,101 @@ def stats_hold(p3, n3, lin9, n9) -> dict:
                              "statistics are off the exact ones")
         out[key] = dist
     return out
+
+
+def _dtype_tag(dt) -> tuple:
+    """(TOL's name of ``dt``, its short tag, its bytes an element)."""
+    import torch
+
+    return (str(dt).replace("torch.", ""),
+            "f32" if dt == torch.float32 else "bf16",
+            torch.empty((), dtype=dt).element_size())
+
+
+def record_b5(record, args, dt, what: str) -> None:
+    """B5 on a captured call's ``args`` cast to ``dt``, through ``record``
+    (``record_kernel`` with its results list bound); rows past n_nodes
+    must come out exactly 0."""
+    from cgcnet_tpu_torch.ops import assign_head as ah
+
+    dt_name, tag, isz = _dtype_tag(dt)
+    p, dh, u, w, nn5 = args
+    a5 = (p.to(dt), dh.to(dt), u, w, nn5)
+    b, n, c = p.shape
+    rr = int(nn5.sum().item())
+    out = ah.assign_tail_bwd(*a5)
+    if out[:, rr:].any():
+        raise SystemExit("B5: rows past n_nodes are not exactly 0")
+    record(
+        f"B5 assign_tail_bwd {what} {tag} N={n} C={c}", "B5", dt_name,
+        out, ah.assign_tail_bwd_plain(*a5),
+        lambda: ah.assign_tail_bwd(*a5),
+        lambda: ah.assign_tail_bwd_plain(*a5),
+        bytes_=(2 * rr + b * n) * c * isz + 2 * c * 4 + b * 4,
+        ops=10 * rr * c, ops_dt="float32",
+        source="cgcnet_tpu_torch/csrc/assign_tail.cu",
+        replaces="cgcnet_tpu/ops/pallas/assign_head.py:423",
+    )
+
+
+def record_b9a(record, args, dt, what: str, split: bool = False) -> None:
+    """B9a on a captured call's ``args`` (x12 and x3 cast to ``dt``)
+    through ``record``, with its product alone in cuBLAS and, with
+    ``split``, the device ms of each of its launches."""
+    from cgcnet_tpu_torch.ops import assign_head as ah
+
+    dt_name, tag, isz = _dtype_tag(dt)
+    x12, x3, kc3, b3, k12, k3f, const, n_nodes = args
+    n, f3, c = x3.shape[1], x3.shape[2], kc3.shape[1]
+    f12 = x12.shape[-1]
+    rows_real = int(n_nodes.sum().item())
+    a9 = (x12.to(dt), x3.to(dt), kc3, b3, k12, k3f, const, n_nodes)
+    extra = {"product_library_ms": product_library_ms(
+        n, f12 + c, c, dt, x3.device)}
+    if split:
+        extra["split_ms"] = head_split(
+            lambda: ah.assign_head_softmax_pre_lin(*a9))
+    record(
+        f"B9a assign_head_softmax_pre_lin {what}{tag} N={n} F12={f12} "
+        f"F3={f3} C={c}", "B9a", dt_name,
+        ah.assign_head_softmax_pre_lin(*a9),
+        ah.assign_head_softmax_pre_lin_plain(*a9),
+        lambda: ah.assign_head_softmax_pre_lin(*a9),
+        lambda: ah.assign_head_softmax_pre_lin_plain(*a9),
+        bytes_=rows_real * (f12 + f3) * isz
+        + (f3 + 1 + f12 + c) * c * isz + c * 4 + n * c * isz,
+        ops=2 * rows_real * c * (f3 + f12 + c),
+        source="cgcnet_tpu_torch/csrc/assign_head.cu",
+        replaces="cgcnet_tpu/ops/pallas/assign_head.py:882",
+        extra=extra,
+    )
+
+
+def record_b9b(record, args, dt, what: str) -> None:
+    """B9b on a captured call's ``args`` (x3 cast to ``dt``) through
+    ``record``."""
+    import torch
+    from cgcnet_tpu_torch.ops import assign_head as ah
+
+    dt_name, tag, isz = _dtype_tag(dt)
+    x3, kc3, b3, n_nodes = args
+    n, f3, c = x3.shape[1], x3.shape[2], kc3.shape[1]
+    rows_real = int(n_nodes.sum().item())
+    a9b = (x3.to(dt), kc3, b3, n_nodes)
+    record(
+        f"B9b l2relu_stats_lin {what}{tag} N={n} F3={f3} C={c}", "B9b",
+        dt_name, torch.stack(ah.l2relu_stats_lin(*a9b)),
+        torch.stack(ah.l2relu_stats_lin_plain(*a9b)),
+        lambda: ah.l2relu_stats_lin(*a9b),
+        lambda: ah.l2relu_stats_lin_plain(*a9b),
+        bytes_=rows_real * f3 * isz + (f3 + 1) * c * isz + 2 * c * 4,
+        # p formed per element (the F3-term dot, on the tensor cores in
+        # bf16), then the row norm and the sums (6 operations an element)
+        # on the f32 CUDA cores
+        ops={dt_name: 2 * rows_real * c * f3, "float32": 6 * rows_real * c},
+        source="cgcnet_tpu_torch/csrc/assign_tail.cu",
+        replaces="cgcnet_tpu/ops/pallas/assign_head.py:943",
+    )
 
 
 def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
@@ -1980,63 +2118,12 @@ def slide_kernel_phase(seen: dict, device) -> tuple[list[dict], dict]:
                 replaces="cgcnet_tpu/ops/pallas/assign_head.py:286",
                 extra=extra,
             )
-        for (p, dh, u, w, nn5), _ in calls("B5"):
-            a5 = (p.to(dt), dh.to(dt), u, w, nn5)
-            b, n, c = p.shape
-            rr = int(nn5.sum().item())
-            out = ah.assign_tail_bwd(*a5)
-            if out[:, rr:].any():
-                raise SystemExit("B5: rows past n_nodes are not exactly 0")
-            record(
-                f"B5 assign_tail_bwd slide {tag} N={n} C={c}", "B5", dt_name,
-                out, ah.assign_tail_bwd_plain(*a5),
-                lambda a5=a5: ah.assign_tail_bwd(*a5),
-                lambda a5=a5: ah.assign_tail_bwd_plain(*a5),
-                bytes_=(2 * rr + b * n) * c * isz + 2 * c * 4 + b * 4,
-                ops=10 * rr * c, ops_dt="float32",
-                source="cgcnet_tpu_torch/csrc/assign_tail.cu",
-                replaces="cgcnet_tpu/ops/pallas/assign_head.py:423",
-            )
+        for args, _ in calls("B5"):
+            record_b5(record, args, dt, "slide")
         # ---- B9a, B9b: the capacity forward's full-slide calls ----
-        (x12, x3, kc3, b3, k12, k3f, const, n_nodes), _ = max(
-            calls("B9a"), key=lambda v: v[0][1].shape[1])
-        n, f3, c = x3.shape[1], x3.shape[2], kc3.shape[1]
-        f12 = x12.shape[-1]
-        rows_real = int(n_nodes.sum().item())
-        a9 = (x12.to(dt), x3.to(dt), kc3, b3, k12, k3f, const, n_nodes)
-        record(
-            f"B9a assign_head_softmax_pre_lin {tag} N={n} F12={f12} F3={f3} "
-            f"C={c}", "B9a", dt_name,
-            ah.assign_head_softmax_pre_lin(*a9),
-            ah.assign_head_softmax_pre_lin_plain(*a9),
-            lambda: ah.assign_head_softmax_pre_lin(*a9),
-            lambda: ah.assign_head_softmax_pre_lin_plain(*a9),
-            bytes_=rows_real * (f12 + f3) * isz
-            + (f3 + 1 + f12 + c) * c * isz + c * 4 + n * c * isz,
-            ops=2 * rows_real * c * (f3 + f12 + c),
-            source="cgcnet_tpu_torch/csrc/assign_head.cu",
-            replaces="cgcnet_tpu/ops/pallas/assign_head.py:882",
-            extra={"product_library_ms": product_library_ms(
-                n, f12 + c, c, dt, device),
-                "split_ms": head_split(
-                    lambda: ah.assign_head_softmax_pre_lin(*a9))},
-        )
-        (x3b, kc3b, b3b, nnb), _ = calls("B9b")[0]
-        a9b = (x3b.to(dt), kc3b, b3b, nnb)
-        record(
-            f"B9b l2relu_stats_lin {tag} N={n} F3={f3} C={c}", "B9b", dt_name,
-            torch.stack(ah.l2relu_stats_lin(*a9b)),
-            torch.stack(ah.l2relu_stats_lin_plain(*a9b)),
-            lambda: ah.l2relu_stats_lin(*a9b),
-            lambda: ah.l2relu_stats_lin_plain(*a9b),
-            bytes_=rows_real * f3 * isz + (f3 + 1) * c * isz + 2 * c * 4,
-            # p formed per element (the F3-term dot, on the tensor cores in
-            # bf16), then the row norm and the sums (6 operations an
-            # element) on the f32 CUDA cores
-            ops={dt_name: 2 * rows_real * c * f3, "float32": 6 * rows_real * c},
-            source="cgcnet_tpu_torch/csrc/assign_tail.cu",
-            replaces="cgcnet_tpu/ops/pallas/assign_head.py:943",
-        )
+        a9 = max(calls("B9a"), key=lambda v: v[0][1].shape[1])[0]
+        record_b9a(record, a9, dt, "", split=True)
+        record_b9b(record, calls("B9b")[0][0], dt, "")
         # ---- int8 B1: the forward and transpose blocks of the slide ----
         for (nbr_, w_, bc_, bm_, _dt), _ in calls("B1"):
             bb, nn_, k = nbr_.shape
@@ -2582,6 +2669,8 @@ def slice_phase(tmp: Path, device) -> dict:
     ladder = ladder_phase(tmp, device, tmp / "model_SAGE.pt")
     paths.update(ladder.pop("paths"))
     kernels += ladder.pop("kernels")
+    slide_f32 = f32_phase(tmp, device, tmp / "model_SAGE.pt")
+    paths.update(slide_f32.pop("paths"))
     for entry in kernels:
         key = entry.pop("key")
         by_path = {name: paths[name][key] for name in entry.pop("paths")}
@@ -2590,7 +2679,7 @@ def slice_phase(tmp: Path, device) -> dict:
         if by_path and entry["launches"] == 0:
             raise SystemExit(f"{entry['name']}: no launch on any path")
     return {**slide, **shards, **entry_points, **data_parallel, **ladder,
-            "kernels": kernels,
+            **slide_f32, "kernels": kernels,
             "stats_hold": stats,
             "forward_ms_per_batch": fwd_ms,
             "predict_wall_s": wall, "train_step_ms": train["step_ms"],
@@ -3704,6 +3793,40 @@ def ladder_kernels(seen: dict, n: int) -> list[dict]:
     return results
 
 
+def ladder_top_kernels(seen: dict, n: int) -> tuple[list[dict], dict]:
+    """B9a (the capacity forward's call over every row), B9b (and its
+    statistics hold: the sums against the exact f64 sums, between the two
+    witnesses) and B5 (each capacity chunk's call) as the capacity step of
+    the ``n``-nuclei rung gave them (``seen``), held against their plain
+    versions and timed like phase 3, in bf16 (the path's type)."""
+    import torch
+
+    results = []
+
+    def record(*args, **kwargs):
+        record_kernel(results, *args, paths=SLIDE_PATHS, reps=5,
+                      plain_reps=2, **kwargs)
+
+    def calls(key):
+        return [v for (k, _, _), v in seen.items() if k == key]
+
+    what = f"{n} nuclei "
+    b9a, b9b, b5 = calls("B9a"), calls("B9b"), calls("B5")
+    if not (b9a and b9b and b5):
+        raise SystemExit(f"{what}: captured B9a {len(b9a)}, B9b {len(b9b)}, "
+                         f"B5 {len(b5)} calls")
+    record_b9a(record, max(b9a, key=lambda v: v[0][1].shape[1])[0],
+               torch.bfloat16, what)
+    torch.cuda.empty_cache()
+    record_b9b(record, b9b[0][0], torch.bfloat16, what)
+    x3, kc3, b3, nn9 = b9b[0][0]
+    stats = stats_hold(None, None, (x3, kc3, b3), nn9)
+    torch.cuda.empty_cache()
+    for args, _ in b5:
+        record_b5(record, args, torch.bfloat16, f"{what}chunk")
+    return results, stats
+
+
 def ladder_phase(tmp: Path, device, ckpt: Path) -> dict:
     """Phase 14 (see the module docstring). Returns the ladder's numbers
     and its launch counts per path."""
@@ -3716,15 +3839,19 @@ def ladder_phase(tmp: Path, device, ckpt: Path) -> dict:
     cfg = Config().apply_overrides(SLIDE_DTYPE)
     torch.cuda.empty_cache()
     paths = {"slide_ladder": expected({}), "slide_ladder_default": expected({})}
-    rungs, kernels = [], []
+    rungs, kernels, stats = [], [], None
     for n in (SLIDE_NUCLEI, *LADDER_NUCLEI):
         # phase 10 holds the 100k slide: here its steps alone, for the fit
-        seen = {} if n == LADDER_KERNELS else None
-        r = ladder_rung(n, cfg, ckpt, device, grad_hold=n == LADDER_GRAD_HOLD,
+        seen = {} if n in (LADDER_KERNELS, LADDER_TOP) else None
+        r = ladder_rung(n, cfg, ckpt, device, grad_hold=n in LADDER_GRAD_HOLD,
                         default=n == LADDER_DEFAULT, account=n == LADDER_TOP,
                         holds=n in LADDER_NUCLEI, seen=seen)
         if seen is not None:
-            kernels += ladder_kernels(seen, n)
+            if n == LADDER_KERNELS:
+                kernels += ladder_kernels(seen, n)
+            if n == LADDER_TOP:
+                top, stats = ladder_top_kernels(seen, n)
+                kernels += top
             # slide_capture's shims hold ``seen`` in a reference cycle
             del seen
             gc.collect()
@@ -3746,7 +3873,167 @@ def ladder_phase(tmp: Path, device, ckpt: Path) -> dict:
     log("  ladder " + json.dumps(summary))
     return {"ladder": {**summary, "account": next(
         (r["account"] for r in rungs if "account" in r), None),
-        "wall_s": wall}, "paths": paths, "kernels": kernels}
+        "stats_hold_top": stats, "wall_s": wall}, "paths": paths,
+        "kernels": kernels}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the slide CLI's defaults — f32, 100k nuclei, one shard
+# ---------------------------------------------------------------------------
+
+def f32_step_hold(model, cfg_, inputs, remat, what) -> dict:
+    """One f32 slide step's loss and gradients, every kernel against every
+    plain version on the card, at the f32 rules — the loss as the logits
+    (LOGIT_ATOL/LOGIT_RTOL), each gradient at GRAD_REL/GRAD_FLOOR, nothing
+    widened. The gradients are held on the plain step replayed with the
+    kernel step's max-readout routing (``readout_routing``), whose moves
+    are bounded by READOUT_STEPS and READOUT_SHARE as in ``step_hold``; the
+    gradients as each side routes its own readouts are logged beside.
+    Returns what ``step_verdict`` reads."""
+
+    def grads(replace, mode=None):
+        with sites_replaced(replace), (mode if mode is not None
+                                       else contextlib.nullcontext()):
+            return slide_grads(model, cfg_, inputs, remat)
+
+    routing = readout_routing()
+    g_ker = grads(every_kernel, routing)
+    g_plain = grads(all_plain)
+    lim = LOGIT_ATOL + LOGIT_RTOL * abs(g_plain[0])
+    log(f"  {what} one step: loss {g_ker[0]:.7f} (kernels) vs "
+        f"{g_plain[0]:.7f} (plain versions on the card); tol {lim:.3e} "
+        f"({abs(g_ker[0] - g_plain[0]) / lim:.3f} of it)")
+    unrouted = grads_close(
+        f"{what} step gradients, readouts as each side routes them (logged, "
+        "not held)", g_ker[1], g_plain[1], GRAD_REL, strict=False)
+    replayed = grads(all_plain, routing.replay())
+    moves = routing.moves[0]
+    log(f"  {what}: the plain step's readouts routed as the kernel step's: "
+        + "; ".join(f"readout {i}: {n} of {cols} columns moved, worst gap "
+                    f"{gap:.2f} bf16 steps"
+                    for i, (cols, n, gap) in enumerate(moves))
+        + f" (limits {READOUT_STEPS:g} steps, {READOUT_SHARE:g} of the "
+        f"columns); replayed loss {replayed[0]:.7f}")
+    worst = grads_close(
+        f"{what} step gradients, kernels vs plain versions on the card "
+        "(readouts routed as the kernel step's)", g_ker[1], replayed[1],
+        GRAD_REL, strict=False)
+    return {"loss": abs(g_ker[0] - g_plain[0]) / lim, "worst": worst[0],
+            "grad": worst[1], "unrouted": unrouted[1],
+            "steps": max([0.0] + [gap for _, _, gap in moves]),
+            "share": max([0.0] + [n / cols for cols, n, _ in moves]),
+            "finite": all(torch_isfinite(g) for g in g_ker[1].values())}
+
+
+def f32_phase(tmp: Path, device, ckpt: Path) -> dict:
+    """Phase 15 (see the module docstring). Returns its numbers and the
+    launch counts of its paths."""
+    import numpy as np
+    import torch
+    from cgcnet_tpu_torch.cli import slide as slide_cli
+    from cgcnet_tpu_torch.config import Config
+    from cgcnet_tpu_torch.parallel.mega_model import mega_forward
+    from cgcnet_tpu_torch.parallel.slide_setup import (
+        build_slide_inputs,
+        synthetic_slide,
+    )
+
+    cfg = Config()
+    log(f"phase 15: the slide CLI's defaults (Config(): "
+        f"{cfg.model.compute_dtype}, {SLIDE_NUCLEI} nuclei, one shard, "
+        f"phase 4's checkpoint; {card_line()})")
+    if cfg.model.compute_dtype != "float32":
+        raise SystemExit(f"the default compute dtype is "
+                         f"{cfg.model.compute_dtype}, not float32")
+    t_phase = time.time()
+    # SLIDE_NUCLEI is the CLI's default --nuclei; no dtype override
+    base = ["--synthetic", "--nuclei", str(SLIDE_NUCLEI), "--shards", "1",
+            "--ckpt", str(ckpt), *(["--cpu"] if device.type == "cpu" else [])]
+    out: dict = {"card": card_line()}
+
+    def cli(argv, want, what):
+        zero_counts()
+        t0 = time.time()
+        res = slide_cli.main([*base, *argv])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: want.get(k, 0) for k in KERNELS}
+        log(f"  cli.slide {' '.join(argv)}: {time.time() - t0:.1f} s wall; "
+            f"logits {res['logits'].tolist()}; launches {counts}")
+        if counts != want:
+            raise SystemExit(f"phase 15 {what}: launches {counts} != {want}")
+        if (res["cap"] != SLIDE_CAP or not res["bsr"]
+                or not np.isfinite(res["logits"]).all()
+                or res["logits"].shape != (3,)):
+            raise SystemExit(f"phase 15 {what}: {res}")
+        return res, counts
+
+    # ---- serving: cli.slide at its defaults, a stream ----
+    builds, forwards = 1 + F32_STREAM, 2 + F32_STREAM
+    res, serve = cli(["--slides", str(F32_STREAM)], {
+        k: SLIDE_BUILD.get(k, 0) * builds + F32_FORWARD.get(k, 0) * forwards
+        for k in KERNELS}, "serving")
+    log(f"  {builds} builds x {SLIDE_BUILD} + {forwards} forwards x "
+        f"{F32_FORWARD} (B8 = 0: f32 takes no B8 leg); forward "
+        f"{res['t_fwd_s'] * 1e3:.1f} ms (host clock), stream "
+        f"{res['slides_per_s']:.3f} slides/s")
+    paths = {"slide_f32_serve": serve}
+    feats, coords = synthetic_slide(SLIDE_NUCLEI)
+    build = build_slide_inputs(cfg, feats, coords, 1, device)
+    inputs = build.inputs
+    model = slide_model(cfg, ckpt, device)
+    with torch.no_grad():
+        out["forward_ms"] = time_ms(
+            lambda: mega_forward(model, cfg.model, inputs), reps=5, warmup=1)
+    log(f"  f32 forward {out['forward_ms']:.3f} ms (median of 5, CUDA "
+        "events)")
+    logits = logits_hold(model, cfg, inputs, "f32 slide")
+    if int(logits.argmax()) != res["pred"]:
+        raise SystemExit("phase 15: the held logits' grade is not cli.slide's")
+
+    # ---- the default (no-chunk) step and the capacity recipe, in f32 ----
+    cap_cfg = cfg.apply_overrides(SLIDE_CAPACITY)
+    for name, c, remat, n_steps, per in (
+            ("train", cfg, False, F32_TRAIN_STEPS, F32_TRAIN_PER_STEP),
+            ("capacity", cap_cfg, True, F32_CAP_STEPS, F32_CAP_PER_STEP)):
+        what = f"f32 {'no-chunk' if name == 'train' else 'capacity'}"
+        r = f32_step_hold(model, c, inputs, remat, what)
+        require_step(r, what)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        paths[f"slide_f32_{name}"], ms, rec = slide_train_steps(
+            c, ckpt, inputs, n_steps, per, remat, what)
+        out[f"{name}_step_ms"] = ms
+        out[f"{name}_times_ms"] = rec["times"]
+        out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[f"{name}_hold"] = {k: v for k, v in r.items() if k != "finite"}
+    del model, inputs, build
+    torch.cuda.empty_cache()
+
+    # ---- cli.slide --train-epochs 1 --out, the written file served ----
+    ft = tmp / "slide_f32_finetuned.pt"
+    res_ft, counts = cli(["--train-epochs", "1", "--out", str(ft)], {
+        k: SLIDE_BUILD.get(k, 0) + 3 * F32_FORWARD.get(k, 0)
+        + F32_TRAIN_PER_STEP.get(k, 0) for k in KERNELS}, "fine-tune")
+    _add(paths["slide_f32_train"], counts)
+    res_back, counts = cli(["--ckpt", str(ft)], {
+        k: SLIDE_BUILD.get(k, 0) + 2 * F32_FORWARD.get(k, 0)
+        for k in KERNELS}, "serving the fine-tuned file")
+    _add(paths["slide_f32_serve"], counts)
+    log(f"  fine-tune losses {res_ft['losses']}, fine-tuned logits "
+        f"{res_ft['logits_finetuned'].tolist()}; served from the written "
+        f"file {res_back['logits'].tolist()}")
+    if not (np.isfinite(res_ft["losses"]).all()
+            and np.array_equal(res_ft["logits_finetuned"], res_back["logits"])):
+        raise SystemExit("phase 15: cli.slide fine-tune round trip")
+    out["wall_s"] = time.time() - t_phase
+    log(f"  phase 15 ({card_line()}): f32 forward {out['forward_ms']:.3f} "
+        f"ms; no-chunk step {out['train_step_ms']:.3f} ms, peak "
+        f"{out['train_peak_gib']:.3f} GiB; capacity step "
+        f"{out['capacity_step_ms']:.3f} ms, peak "
+        f"{out['capacity_peak_gib']:.3f} GiB; phase wall "
+        f"{out['wall_s']:.1f} s")
+    return {"slide_f32": out, "paths": paths}
 
 
 # the kernels whose compiler report phase 2 must hold: the bf16

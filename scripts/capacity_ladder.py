@@ -42,8 +42,10 @@ def main(argv=None) -> int:
     p.add_argument("--nuclei", type=sizes, default=list(cs.LADDER_NUCLEI))
     p.add_argument("--default", type=int, default=cs.LADDER_DEFAULT,
                    help="rung of the default (no-chunk) step; 0 for none")
-    p.add_argument("--grad-hold", type=int, default=cs.LADDER_GRAD_HOLD,
-                   help="rung of the full step hold; 0 for none")
+    p.add_argument("--grad-hold", type=sizes,
+                   default=list(cs.LADDER_GRAD_HOLD),
+                   help="rungs of the full step hold (comma-separated); 0 "
+                        "for none")
     p.add_argument("--account", type=int, default=cs.LADDER_TOP,
                    help="rung of the memory account; 0 for none")
     p.add_argument("--no-cli", action="store_true",
@@ -112,7 +114,7 @@ def main(argv=None) -> int:
 
         for n in args.nuclei:
             r = attempt(f"{n} nuclei", lambda n=n: cs.ladder_rung(
-                n, cfg, ckpt, device, grad_hold=n == args.grad_hold,
+                n, cfg, ckpt, device, grad_hold=n in args.grad_hold,
                 default=n == args.default, account=n == args.account))
             if r is not None:
                 r.pop("counts"), r.pop("default_counts")

@@ -181,6 +181,24 @@ def test_ladder_chunk_plan_and_launches(nuclei, rows, chunks):
             "B2": 10, "B5": chunks, "B8": 0, "B9a": 1 + 2 * chunks, "B9b": 1}
 
 
+def test_f32_slide_takes_b8s_legs_on_b2():
+    """Phase 15's f32 launch counts are the bf16 paths' with each B8 leg on
+    B2: ``_banded_on`` serves B8 for 2-byte activations only."""
+    from cgcnet_tpu_torch.ops import ell
+
+    win = torch.zeros((1, 4, 1), dtype=torch.int32)
+    x = torch.zeros((8, 1140))
+    assert ell._banded_on(win, x.bfloat16()) and not ell._banded_on(win, x)
+
+    def on_b2(per):
+        return {k: v for k, v in chip_smoke.unbanded(per).items() if v}
+
+    assert chip_smoke.F32_FORWARD == on_b2(chip_smoke.SLIDE_FORWARD)
+    assert chip_smoke.F32_TRAIN_PER_STEP == on_b2(
+        chip_smoke.SLIDE_TRAIN_PER_STEP)
+    assert chip_smoke.F32_CAP_PER_STEP == on_b2(chip_smoke.SLIDE_CAP_PER_STEP)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_plain_b2_row_slices_are_bit_equal(dtype, monkeypatch):

@@ -392,24 +392,45 @@ def test_slide_kernels_match_plain(device, dtype):
 # the bf16 tensor-core kernels (B8; B4, B6 and B9a's product) at their edges
 # ---------------------------------------------------------------------------
 
-def _kernel_names(fn, want=(), tries: int = 3) -> list[str]:
-    """Names of the CUDA kernels ``fn`` launches (torch.profiler trace). The
-    profiler drops an event now and then, so a trace is taken again, up to
-    ``tries`` times, until some name contains each of ``want`` (the names
-    the caller asserts; with none, until it caught any device event)."""
+def _kernel_names(fn, want=(), reject=(), tries: int = 3,
+                  empty_tries: int = 8) -> list[str]:
+    """Names of the CUDA kernels ``fn`` launches (torch.profiler trace), each
+    trace from a fresh profiler after a ``torch.cuda.synchronize()``. A
+    trace that names a kernel containing one of ``reject`` is returned at
+    once (the caller's assertion fails on it). The profiler drops an event
+    now and then, so a trace that lacks one of ``want`` (the names the
+    caller asserts) is taken again, up to ``tries`` times, and a trace with
+    no device event at all up to ``empty_tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    partial = empty = 0
+    while True:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
+        if any(r in n for r in reject for n in names):
+            return names
         if names and all(any(w in n for n in names) for w in want):
             return names
-    return names
+        if names:
+            partial += 1
+        else:
+            empty += 1
+        if partial >= tries or empty >= empty_tries:
+            return names
+
+
+def _variants(wrapper, fn) -> dict:
+    """The kernels ``wrapper`` records (its ``variants``) as launched while
+    ``fn`` runs, with their counts."""
+    before = dict(wrapper.variants)
+    fn()
+    return {k: n - before.get(k, 0) for k, n in wrapper.variants.items()
+            if n != before.get(k, 0)}
 
 
 @pytest.mark.parametrize("f", [1140, 1152])
@@ -453,12 +474,18 @@ def test_banded_tensor_cores_match_plain(device, f):
             kw.get("blk_mask", m).to(device))]
         for live in counts:
             launches = bsr.bsr_matmul_banded.launches
-            out = bsr.bsr_matmul_banded(*dev_args, **dev_kw, live_slots=live)
+            got = {}
+            ran = _variants(bsr.bsr_matmul_banded, lambda: got.update(
+                out=bsr.bsr_matmul_banded(*dev_args, **dev_kw,
+                                          live_slots=live)))
+            assert ran == {"banded_tc_kernel": 1}, ran
             assert bsr.bsr_matmul_banded.launches == launches + 1
-            _close_to(out, ref, tol)
+            _close_to(got["out"], ref, tol)
     names = _kernel_names(lambda: bsr.bsr_matmul_banded(
-        *dev_args, **dev_kw, live_slots=counts[1]), ("banded_tc_kernel",))
+        *dev_args, **dev_kw, live_slots=counts[1]), ("banded_tc_kernel",),
+        ("banded_kernel",))
     assert any("banded_tc_kernel" in n for n in names), names
+    assert not any("banded_kernel" in n for n in names), names
 
 
 def test_banded_narrow_bf16_takes_simt(device):
@@ -474,7 +501,8 @@ def test_banded_narrow_bf16_takes_simt(device):
     args = [a.to(device) for a in (v, c, win, x)]
     run = lambda: bsr.bsr_matmul_banded(*args, 2048, halo=halo.to(device))
     _close_to(run(), ref, 2.0 ** -6)
-    names = _kernel_names(run, ("banded_kernel",))
+    assert _variants(bsr.bsr_matmul_banded, run) == {"banded_kernel": 1}
+    names = _kernel_names(run, ("banded_kernel",), ("banded_tc_kernel",))
     assert any("banded_kernel" in n for n in names), names
     assert not any("banded_tc_kernel" in n for n in names), names
 
@@ -517,9 +545,12 @@ def test_heads_tensor_cores_match_plain(device):
         _close_to(out, plain(*args), tol)
         assert not out[~rows.to(device)].any(), name
         assert not out[..., cc:].any(), name
+        ran = _variants(fn, lambda: fn(*to(*args), **kw))
+        assert ran == {"gemm_tc_kernel": 1}, (name, ran)
         names = _kernel_names(lambda: fn(*to(*args), **kw),
-                              ("gemm_tc_kernel",))
+                              ("gemm_tc_kernel",), ("gemm_kernel",))
         assert any("gemm_tc_kernel" in k for k in names), (name, names)
+        assert not any("gemm_kernel" in k for k in names), (name, names)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -641,7 +672,10 @@ def test_heads_f32_match_plain(device, cc, f12):
         again = fn(*card(), **kw)
         again = again[0] if isinstance(again, tuple) else again
         assert torch.equal(again, out), name
-        names = _kernel_names(lambda: fn(*card(), **kw), (kernel,))
+        ran = _variants(fn, lambda: fn(*card(), **kw))
+        assert ran == {"gemm_kernel": 1}, (name, ran)
+        names = _kernel_names(lambda: fn(*card(), **kw), (kernel,),
+                              ("gemm_tc_kernel",))
         assert any(kernel in k for k in names), (name, kernel, names)
         assert not any("gemm_tc_kernel" in k for k in names), (name, names)
 
@@ -657,7 +691,10 @@ def test_heads_f32_narrow_copies(device):
         out = out[0] if isinstance(out, tuple) else out
         _close_to(out, plain(*args), 1e-5)
         assert not out[~rows].any(), name
-        names = _kernel_names(lambda: fn(*card(), **kw), (kernel,))
+        ran = _variants(fn, lambda: fn(*card(), **kw))
+        assert ran == {"gemm_kernel": 1}, (name, ran)
+        names = _kernel_names(lambda: fn(*card(), **kw), (kernel,),
+                              ("gemm_tc_kernel",))
         assert any(kernel in k for k in names), (name, kernel, names)
         assert kernel.endswith(", 1>"), kernel
 
@@ -741,10 +778,15 @@ def test_b2_live_slots_match_plain(device, f, xdt, vdt):
     assert out.dtype == xdt and out.shape == (2, 6 * 128, f)
     _close_to(out, ref, tol)
     assert not out[0, 128:256].any()
-    want = ("bsr_matmul_tc_kernel" if xdt == torch.bfloat16
-            else "bsr_matmul_f32_kernel")
-    names = _kernel_names(lambda: bsr.bsr_matmul(*args), (want,))
+    kernels = ["bsr_matmul_tc_kernel", "bsr_matmul_f32_kernel"]
+    if xdt == torch.float32:
+        kernels.reverse()
+    want, other = kernels
+    assert _variants(bsr.bsr_matmul, lambda: bsr.bsr_matmul(*args)) \
+        == {want: 1}
+    names = _kernel_names(lambda: bsr.bsr_matmul(*args), (want,), (other,))
     assert any(want in k for k in names), names
+    assert not any(other in k for k in names), names
 
 
 def test_b2_odd_width_bf16(device):
@@ -965,7 +1007,8 @@ def test_b3_matches_plain(device, dtype, b, n, cc, real):
     if n == 100352 and dtype == torch.bfloat16:
         assert ah.stats_distance(
             got, ah.l2relu_stats_reference(p, nn_)) <= ah.STATS_TOL
-    names = _kernel_names(lambda: ah.l2relu_stats(p, nn_), ("stats_kernel",))
+    names = _kernel_names(lambda: ah.l2relu_stats(p, nn_), ("stats_kernel",),
+                          ("stats_partial_kernel",))
     assert any("stats_kernel" in k for k in names), names
     assert not any("stats_partial_kernel" in k for k in names), names
 
@@ -1252,8 +1295,9 @@ def test_banded_gather_matches_plain(device, f, dtype, kind):
                         assert torch.equal(o, r.to(device))
                     else:
                         _close(o, r.to(device), tol)
-    names = _kernel_names(lambda: bsr.bsr_matmul_banded(
-        *dev_args, **dev_kw, live_slots=live), ("banded_kernel",))
+    run = lambda: bsr.bsr_matmul_banded(*dev_args, **dev_kw, live_slots=live)
+    assert _variants(bsr.bsr_matmul_banded, run) == {"banded_kernel": 1}
+    names = _kernel_names(run, ("banded_kernel",), ("banded_tc_kernel",))
     assert any("banded_kernel" in nm for nm in names), names
     assert not any("banded_tc_kernel" in nm for nm in names), names
 

@@ -5,6 +5,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import cgcnet_tpu.dataflow.native as jax_native
 from cgcnet_tpu.config import Config as JaxConfig
@@ -26,6 +27,16 @@ from cgcnet_tpu_torch.ops.knn import radius_knn_np
 
 FIELDS = ("x", "nbr", "nbr_mask", "nbr_t", "nbr_t_mask", "n_nodes", "y",
           "patch_idx", "blk_cols", "blk_mask", "blk_cols_t", "blk_mask_t")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this file runs (several test workers share
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_config_json_from_jax_loads_unchanged():

@@ -29,6 +29,16 @@ from cgcnet_tpu_torch.ops import bsr as tbsr
 from torch_port_util import example_batch, stage1_weights
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this file runs (several test workers share
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def interpret_mode():
     bk.set_interpret(True)

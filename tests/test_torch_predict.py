@@ -17,6 +17,16 @@ import torch
 from torch_port_util import REPO
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this file runs (several test workers share
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     """One JAX checkpoint (random init, perturbed BN statistics), served by

@@ -8,8 +8,19 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this file runs (several test workers share
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -58,3 +69,32 @@ def test_own_kernels_are_the_sources_kernels(script):
 ])
 def test_own_kernel_names(script, name, own):
     assert script.own_kernel(name) is own
+
+
+def test_recorded_variants_are_the_sources_kernels():
+    """Each kernel a wrapper records in its ``variants`` is a ``__global__``
+    kernel of ``csrc/``, the two of each choice differ, and the plain
+    versions on the CPU record none."""
+    from cgcnet_tpu_torch.ops import assign_head as ah
+    from cgcnet_tpu_torch.ops import bsr
+
+    bf, f32 = torch.bfloat16, torch.float32
+    choices = [(bsr.banded_variant(bf, 128), bsr.banded_variant(bf, 64)),
+               (bsr.banded_variant(bf, 1140), bsr.banded_variant(f32, 1140)),
+               (bsr.bsr_matmul_variant(bf), bsr.bsr_matmul_variant(f32)),
+               (ah.head_product(bf), ah.head_product(f32))]
+    kernels = _global_kernels()
+    for tc, other in choices:
+        assert tc != other and {tc, other} <= kernels, (tc, other)
+    records = [bsr.bsr_matmul.variants, bsr.bsr_matmul_banded.variants,
+               ah.assign_head_softmax_pre.variants,
+               ah.assign_head_softmax.variants,
+               ah.assign_head_softmax_pre_lin.variants]
+    before = [dict(r) for r in records]
+    b, n, f12, c = 1, 128, 8, 16
+    x12, p = torch.randn(b, n, f12), torch.randn(b, n, c)
+    k12, k3f, const = torch.randn(f12, c), torch.randn(c, c), torch.zeros(c)
+    nn_ = torch.tensor([100], dtype=torch.int32)
+    ah.assign_head_softmax_pre(x12, p, k12, k3f, const, nn_)
+    ah.assign_head_softmax(x12, p, k12, k3f, const, nn_)
+    assert [dict(r) for r in records] == before

@@ -33,6 +33,16 @@ from cgcnet_tpu_torch.parallel import slide_setup as tss
 T = 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this file runs (several test workers share
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def strip_graph(n, shards, seed=0, k=6):
     """A narrow strip of n nuclei (sorted x), stripe-sorted for ``shards``:
     the geometry whose band windows build (the JAX suite's strip case)."""

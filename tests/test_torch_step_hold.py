@@ -14,10 +14,21 @@ import importlib.util
 from pathlib import Path
 
 import pytest
+import torch
 
 from cgcnet_tpu_torch.ops import assign_head as ah
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this file runs (several test workers share
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _chip_smoke():

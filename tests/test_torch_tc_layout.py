@@ -24,6 +24,16 @@ from cgcnet_tpu_torch.ops import bsr
 from cgcnet_tpu_torch.ops.knn import radius_knn_np
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this file runs (several test workers share
+    the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _slide_ell(seed: int, cap: int = 1024, k: int = 8):
     """A radius-kNN ELL over spatially sorted random nuclei, padded to
     ``cap`` rows with self-only padding rows."""

@@ -1,6 +1,6 @@
-"""One rank of tests/test_torch_data_parallel.py and
-tests/test_torch_checkpoint_sharded.py: the port's data axis as one process
-per rank over a gloo group on the CPU.
+"""One rank of tests/test_torch_data_parallel.py,
+tests/test_torch_checkpoint_sharded.py and tests/test_torch_loader_workers.py:
+the port's data axis as one process per rank over a gloo group on the CPU.
 
 Imports torch, numpy and the port only (a spawned rank imports no JAX).
 The test writes a job (``torch.save``: the cases with their batches,
@@ -111,6 +111,35 @@ def loader_case(case, axis: GraphAxis) -> dict:
             "workers": loader.num_workers}
 
 
+def workers_case(case, axis: GraphAxis) -> list:
+    """The process-sharded loader at each worker count of
+    ``case["workers"]``, each run from a fresh dataset and the seeded
+    state: this rank's rows of the first ``case["steps"]`` global batches
+    of epoch 0 and the data-parallel step's loss on each."""
+    from cgcnet_tpu_torch.dataflow.dataset import NucleiGraphDataset
+    from cgcnet_tpu_torch.dataflow.loader import GraphLoader
+
+    cfg = Config().apply_overrides(case["over"])
+    runs = []
+    for workers in case["workers"]:
+        loader = GraphLoader(NucleiGraphDataset(cfg.data, "train"),
+                             case["batch_size"], device="cpu",
+                             num_workers=workers, seed=case["seed"],
+                             drop_last=True, rank=axis.rank, world=axis.size)
+        state = create_train_state(cfg, "cpu", seed=0)
+        step = make_train_step(data_axis=axis)
+        batches, losses = [], []
+        for graph in loader.epoch(0):
+            batches.append({k: v.numpy().copy() for k, v in vars(graph).items()
+                            if v is not None})
+            losses.append(float(step(state, graph)["loss"]))
+            if len(losses) == case["steps"]:
+                break
+        runs.append({"workers": loader.num_workers, "batches": batches,
+                     "losses": losses})
+    return runs
+
+
 def sharded_case(case, axis: GraphAxis) -> dict:
     """Sharded checkpoints at D ranks: (a) a row-sharded / replicated /
     plain state saved and loaded into the same layout; (b) the same
@@ -164,7 +193,8 @@ def _flat(tree, prefix: str = "") -> dict:
     return out
 
 
-KINDS = {"steps": steps_case, "loader": loader_case, "sharded": sharded_case}
+KINDS = {"steps": steps_case, "loader": loader_case, "sharded": sharded_case,
+         "workers": workers_case}
 
 
 def run(rank: int, world: int, init: str, job_path: str, out_dir: str,
