@@ -29,7 +29,8 @@ the statistics summed over the graph axis); and, for the capacity path,
 B9a and B9b, which take conv3's lin input x3 [B, N, F3] and its kernel and
 bias instead of p (p = round(x3 @ kc3) + b3 formed inside the kernels, never
 stored), under ``AssignTailTrainChunkedLin``, whose backward recomputes S
-and p chunk by chunk in two phases.
+and p chunk by chunk in two phases. ``AssignTailTrainChunked`` is the same
+chunked backward over a stored p (B3, B4, B5; no model path calls it).
 
 In bf16 the heads' product (B4, B6, B9a) runs on the tensor cores over
 one zero-padded copy of [K12 ; K3f] (``pad_head_weights``, made per call)
@@ -45,7 +46,8 @@ Replaces ``cgcnet_tpu/ops/pallas/assign_head.py``: ``_fwd_call_pre`` (B4),
 ``_stats_call`` (B3), ``_bwd_call`` (B5), ``_fwd_call`` (B6),
 ``_fwd_call_pre_lin`` (B9a), ``_stats_call_lin`` (B9b),
 ``assign_head_softmax_pre``'s, ``assign_tail_train``'s,
-``assign_tail_train_psum``'s, ``assign_tail_train_chunked_lin``'s and
+``assign_tail_train_psum``'s, ``assign_tail_train_chunked``'s,
+``assign_tail_train_chunked_lin``'s and
 ``assign_head_softmax``'s custom VJPs, ``pick_chunk`` and ``_chunk_plan``. Each kernel has a plain PyTorch version
 with the same arguments; the wrapper uses it only for tensors on the CPU and
 launches ``csrc/assign_head.cu`` or ``csrc/assign_tail.cu`` for CUDA tensors.
@@ -971,15 +973,136 @@ def lin_p_rounded_once(x3, kc3, b3) -> torch.Tensor:
     return (x3.float() @ kc3.to(dt).float() + b3.to(dt).float()).to(dt)
 
 
+def _chunk_spans(nrows: int, chunk_rows: int) -> list[tuple[int, int]]:
+    """(first row, rows) of each chunk of :func:`chunk_plan`: the full
+    chunks, then the remainder."""
+    ch, nfull, rem = chunk_plan(nrows, chunk_rows)
+    return [(i * ch, ch) for i in range(nfull)] + (
+        [(nfull * ch, rem)] if rem else [])
+
+
+def _chunked_tail_bwd(ds, x12, k12, k3f, n_nodes, alg, n, eps, chunk_rows,
+                      axis, s_p_of, take_dp):
+    """The two row sweeps of the chunked tails' backward (``_atc_bwd``,
+    ``_atcl_bwd``). ``s_p_of(lo, size, x12 chunk, n_nodes chunk)``
+    recomputes a chunk's (S, p) — S by the forward's kernel, so the same
+    bits; phase A sums the [C]-sized reductions (dk12, dk3f, dconst) over
+    the chunks, then the tail algebra's backward routes them
+    (:func:`_alg_grads`, the statistics' share summed over ``axis``);
+    phase B writes dx12 and hands each chunk's dp (one B5 launch) to
+    ``take_dp(lo, size, dp chunk)``. ``alg`` is (ssum, ssq, k3, lin_bias,
+    bn_scale, bn_bias). An S wider than C (``c_out``: exact-zero pad
+    columns, so dl's are zero too) runs the row products against
+    zero-padded kernels and the [C]-sized sums over its first C columns,
+    as ``AssignTailTrainPsum``. Returns (dx12, dk12, dk3, dlin_bias,
+    dbn_scale, dbn_bias)."""
+    c = k3f.shape[0]
+    pad = ds.shape[-1] - c
+    k12e, k3fe = ((torch.nn.functional.pad(k, (0, pad)) for k in (k12, k3f))
+                  if pad else (k12, k3f))
+    spans = _chunk_spans(x12.shape[1], chunk_rows)
+
+    def dl_of(lo, size):
+        xc = x12[:, lo:lo + size]
+        nn_c = torch.clamp(n_nodes.long() - lo, 0, size).to(n_nodes.dtype)
+        sc, pc = s_p_of(lo, size, xc, nn_c)
+        dl, dl32 = _softmax_vjp(sc, ds[:, lo:lo + size])
+        return xc, pc, nn_c, dl32, dl
+
+    # ---- phase A: the [C]-sized reductions ----
+    dk12 = x12.new_zeros((x12.shape[-1], c), dtype=torch.float32)
+    dk3f = x12.new_zeros((c, c), dtype=torch.float32)
+    dconst = x12.new_zeros((c,), dtype=torch.float32)
+    for lo, size in spans:
+        xc, pc, nn_c, dl32, dl = dl_of(lo, size)
+        dl = dl[..., :c].float()
+        dk12 += torch.einsum("bnf,bnc->fc", xc.float(), dl)
+        _, h32 = _rnorm_h(pc.float())
+        hc = (h32 * _prefix_mask(nn_c, size)[..., None]).to(pc.dtype)
+        dk3f += torch.einsum("bnc,bnd->cd", hc.float(), dl)
+        dconst += torch.sum(dl32[..., :c], dim=(0, 1))
+    dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
+        alg, n, eps, dk3f, dconst, mega_graph.psum(dk3f, axis),
+        mega_graph.psum(dconst, axis),
+    )
+
+    # ---- phase B: the row gradients, chunk by chunk ----
+    dx12 = torch.zeros_like(x12)
+    for lo, size in spans:
+        _, pc, nn_c, _, dl = dl_of(lo, size)
+        dh = dl @ k3fe.to(dl.dtype).t()
+        take_dp(lo, size, assign_tail_bwd(pc, dh, dssum, dssq, nn_c))
+        dx12[:, lo:lo + size] = (dl @ k12e.to(dl.dtype).t()).to(dx12.dtype)
+    return dx12, dk12.to(k12.dtype), dk3, dlin_bias, dbn_scale, dbn_bias
+
+
+class AssignTailTrainChunked(torch.autograd.Function):
+    """``AssignTailTrainPsum`` whose backward bounds its working set to
+    O(chunk_rows * C): S is not saved, and the backward
+    (``_atc_bwd``) sweeps the rows twice in chunks of ``chunk_rows`` (full
+    chunks and one remainder), recomputing S by B4 per chunk — phase A sums
+    the [C]-sized reductions, phase B writes dx12 and dp through one B5
+    launch per chunk. ``axis`` sums the statistics over the graph axis
+    (``ONE``: this process's rows alone). Returns (S, batch mean, batch
+    var)."""
+
+    @staticmethod
+    def forward(ctx, x12, p, k12, k3, lin_bias, bn_scale, bn_bias, n_nodes,
+                n, eps, c_out, axis, chunk_rows):
+        ssum, ssq = l2relu_stats(p, n_nodes)
+        ssum, ssq = mega_graph.psum(ssum, axis), mega_graph.psum(ssq, axis)
+        k3f, const, mean, var = tail_algebra(
+            ssum, ssq, k3, lin_bias, bn_scale, bn_bias, n, eps
+        )
+        s, _ = assign_head_softmax_pre(x12, p, k12, k3f, const, n_nodes,
+                                       c_out)
+        ctx.save_for_backward(x12, p, k12, k3f, const, n_nodes, ssum, ssq,
+                              k3, lin_bias, bn_scale, bn_bias, n)
+        ctx.eps, ctx.c_out, ctx.axis, ctx.chunk_rows = (eps, c_out, axis,
+                                                        chunk_rows)
+        ctx.mark_non_differentiable(mean, var)
+        return s, mean, var
+
+    @staticmethod
+    def backward(ctx, ds, _dmean, _dvar):
+        (x12, p, k12, k3f, const, n_nodes, ssum, ssq, k3, lin_bias, bn_scale,
+         bn_bias, n) = ctx.saved_tensors
+        dp = torch.zeros_like(p)
+
+        def s_p_of(lo, size, xc, nn_c):
+            pc = p[:, lo:lo + size]
+            return assign_head_softmax_pre(xc, pc, k12, k3f, const, nn_c,
+                                           ctx.c_out)[0], pc
+
+        def take_dp(lo, size, dpc):
+            dp[:, lo:lo + size] = dpc
+
+        dx12, dk12, dk3, dlin_bias, dbn_scale, dbn_bias = _chunked_tail_bwd(
+            ds, x12, k12, k3f, n_nodes,
+            (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
+            ctx.chunk_rows, ctx.axis, s_p_of, take_dp,
+        )
+        return (dx12, dp, dk12, dk3, dlin_bias, dbn_scale, dbn_bias,
+                None, None, None, None, None, None)
+
+
+def assign_tail_train_chunked(x12, p, k12, k3, lin_bias, bn_scale, bn_bias,
+                              n_nodes, n, eps=1e-5, c_out=None, axis=ONE,
+                              chunk_rows=65536):
+    """(S [B, N, c_out or C], mean, var) —
+    :class:`AssignTailTrainChunked`."""
+    return AssignTailTrainChunked.apply(x12, p, k12, k3, lin_bias, bn_scale,
+                                        bn_bias, n_nodes, n, eps, c_out, axis,
+                                        chunk_rows)
+
+
 class AssignTailTrainChunkedLin(torch.autograd.Function):
-    """The capacity path's training tail: ``AssignTailTrainPsum`` with
+    """The capacity path's training tail: ``AssignTailTrainChunked`` with
     conv3's lin inside (B9b for the statistics, B9a for S), so no [N, C]
-    tensor of the conv3 stream exists; S is not saved either. The backward
-    (``_atcl_bwd``) sweeps the rows twice in chunks of ``chunk_rows``,
-    recomputing S (B9a) and p per chunk: phase A sums the [C]-sized
-    reductions (dk12, dk3f, dconst), phase B — with the statistics'
-    cotangents known — writes dx12 and dx3 and sums dkc3, db3 through one B5
-    launch per chunk. Returns (S, batch mean, batch var)."""
+    tensor of the conv3 stream exists. The backward (``_atcl_bwd``) is the
+    same two sweeps, recomputing S (B9a) and p per chunk; phase B also
+    writes dx3 and sums dkc3, db3 from each chunk's dp. Returns (S, batch
+    mean, batch var)."""
 
     @staticmethod
     def forward(ctx, x12, x3, kc3, b3, k12, k3, lin_bias, bn_scale, bn_bias,
@@ -1001,58 +1124,31 @@ class AssignTailTrainChunkedLin(torch.autograd.Function):
     def backward(ctx, ds, _dmean, _dvar):
         (x12, x3, kc3, b3, k12, k3f, const, n_nodes, ssum, ssq, k3, lin_bias,
          bn_scale, bn_bias, n) = ctx.saved_tensors
-        _, nrows, f3 = x3.shape
         c = kc3.shape[1]
-        dt = x3.dtype
-        ch, nfull, rem = chunk_plan(nrows, ctx.chunk_rows)
-        spans = [(i * ch, ch) for i in range(nfull)]
-        if rem:
-            spans.append((nfull * ch, rem))
-
-        def dl_of(lo, size):
-            """Chunk-local recompute: S by B9a (the forward's kernel, so the
-            same bits), p by the plain lin, the masked-softmax fold."""
-            x3c = x3[:, lo:lo + size]
-            xc = x12[:, lo:lo + size]
-            nn_c = torch.clamp(n_nodes.long() - lo, 0, size).to(n_nodes.dtype)
-            sc = assign_head_softmax_pre_lin(xc, x3c, kc3, b3, k12, k3f,
-                                             const, nn_c)
-            dl, dl32 = _softmax_vjp(sc, ds[:, lo:lo + size])
-            return xc, x3c, lin_p(x3c, kc3, b3), nn_c, dl32, dl
-
-        # ---- phase A: the [C]-sized reductions ----
-        dk12 = x3.new_zeros((x12.shape[-1], c), dtype=torch.float32)
-        dk3f = x3.new_zeros((c, c), dtype=torch.float32)
-        dconst = x3.new_zeros((c,), dtype=torch.float32)
-        for lo, size in spans:
-            xc, _, pc, nn_c, dl32, dl = dl_of(lo, size)
-            dk12 += torch.einsum("bnf,bnc->fc", xc.float(), dl.float())
-            _, h32 = _rnorm_h(pc.float())
-            hc = (h32 * _prefix_mask(nn_c, size)[..., None]).to(dt)
-            dk3f += torch.einsum("bnc,bnd->cd", hc.float(), dl.float())
-            dconst += torch.sum(dl32, dim=(0, 1))
-        dssum, dssq, dk3, dlin_bias, dbn_scale, dbn_bias = _alg_grads(
-            (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
-            dk3f, dconst, mega_graph.psum(dk3f, ctx.axis),
-            mega_graph.psum(dconst, ctx.axis),
-        )
-
-        # ---- phase B: the row gradients; dp exists per chunk only ----
-        dx12 = torch.zeros_like(x12)
         dx3 = torch.zeros_like(x3)
-        dkc3 = x3.new_zeros((f3, c), dtype=torch.float32)
+        dkc3 = x3.new_zeros((x3.shape[-1], c), dtype=torch.float32)
         db3 = x3.new_zeros((c,), dtype=torch.float32)
-        for lo, size in spans:
-            xc, x3c, pc, nn_c, dl32, dl = dl_of(lo, size)
-            dh = dl @ k3f.to(dl.dtype).t()
-            dpc = assign_tail_bwd(pc, dh, dssum, dssq, nn_c)
-            dx12[:, lo:lo + size] = (dl @ k12.to(dl.dtype).t()).to(dx12.dtype)
+
+        def s_p_of(lo, size, xc, nn_c):
+            x3c = x3[:, lo:lo + size]
+            return (assign_head_softmax_pre_lin(xc, x3c, kc3, b3, k12, k3f,
+                                                const, nn_c),
+                    lin_p(x3c, kc3, b3))
+
+        def take_dp(lo, size, dpc):
+            # dp exists per chunk only
+            x3c = x3[:, lo:lo + size]
             dx3[:, lo:lo + size] = (dpc @ kc3.to(dpc.dtype).t()).to(dx3.dtype)
-            dkc3 += torch.einsum("bnf,bnc->fc", x3c.float(), dpc.float())
-            db3 += torch.sum(dpc.float(), dim=(0, 1))
-        return (dx12, dx3, dkc3.to(kc3.dtype), db3.to(b3.dtype),
-                dk12.to(k12.dtype), dk3, dlin_bias, dbn_scale, dbn_bias,
-                None, None, None, None, None)
+            dkc3.add_(torch.einsum("bnf,bnc->fc", x3c.float(), dpc.float()))
+            db3.add_(torch.sum(dpc.float(), dim=(0, 1)))
+
+        dx12, dk12, dk3, dlin_bias, dbn_scale, dbn_bias = _chunked_tail_bwd(
+            ds, x12, k12, k3f, n_nodes,
+            (ssum, ssq, k3, lin_bias, bn_scale, bn_bias), n, ctx.eps,
+            ctx.chunk_rows, ctx.axis, s_p_of, take_dp,
+        )
+        return (dx12, dx3, dkc3.to(kc3.dtype), db3.to(b3.dtype), dk12, dk3,
+                dlin_bias, dbn_scale, dbn_bias, None, None, None, None, None)
 
 
 def assign_tail_train_chunked_lin(x12, x3, kc3, b3, k12, k3, lin_bias,

@@ -198,7 +198,17 @@ Phases, each fatal on failure (exit code != 0):
    time by CUDA events, the peak memory); then one ``cli.slide
    --train-epochs 1 --out`` round trip, the written file served again.
    Its launch counts are the paths ``slide_f32_serve``,
-   ``slide_f32_train`` and ``slide_f32_capacity``.
+   ``slide_f32_train`` and ``slide_f32_capacity``;
+16. ``assign_tail_train_chunked`` (the chunked tail over a stored p, which
+   no model path calls): one forward and backward, in f32 and bf16, at the
+   canonical patch's pool-1 shape (B=4, N=5760, C=1140, chunks of
+   ``TAIL_PATCH_CHUNK``) and at the 100k slide's rows (chunks of
+   ``CAP_CHUNK``), seeded operands: its launches (``tail_per_call``: B3 =
+   1, B4 = 1 + 2 x chunks, B5 = chunks), S, the statistics and the seven
+   gradients held against the plain versions on the card at the ``TOL``
+   of the kernel each comes from (``TAIL_RULE``), the call timed with the
+   kernels and plain like phase 3. Its launch counts are the paths
+   ``chunked_tail_patch`` and ``chunked_tail_slide``.
 
 The statistics hold runs after the step holds of phases 9 and 10 that
 rest on it (it reads inputs those phases capture): a run whose statistics
@@ -331,11 +341,12 @@ TOL.update({
 ENTRY_PATHS = ("export", "gin_export", "visualize", "buckets", "random",
                "crossval", "profile")
 PATCH_PATHS = ("serve", "train", "gin_serve", "gin_train", "rest",
-               *ENTRY_PATHS, "data_parallel", "dryrun_dp")
+               *ENTRY_PATHS, "data_parallel", "dryrun_dp",
+               "chunked_tail_patch")
 SLIDE_PATHS = ("slide_serve", "slide_train", "slide_capacity",
                "slide_shards", "dryrun_slide", "slide_ladder",
                "slide_ladder_default", "slide_ladder_cli", "slide_f32_serve",
-               "slide_f32_train", "slide_f32_capacity")
+               "slide_f32_train", "slide_f32_capacity", "chunked_tail_slide")
 # phase 11: the slide over SHARDS ranks sharing the one card over gloo
 # (parallel/mesh.py's backend rule), SHARD_STEPS training steps; a rank that
 # waits on the others longer than SHARD_TIMEOUT_S fails, and so the run
@@ -399,6 +410,13 @@ F32_CAP_STEPS = 3
 F32_FORWARD = {"B2": 4, "B4": 1}
 F32_TRAIN_PER_STEP = {"B2": 7, "B3": 1, "B4": 1, "B5": 1}
 F32_CAP_PER_STEP = {"B2": 10, "B5": 2, "B9a": 5, "B9b": 1}
+# phase 16: assign_tail_train_chunked (no model path calls it) at the
+# canonical patch's pool-1 shape in chunks of TAIL_PATCH_CHUNK (5760 rows:
+# two chunks and a 1664-row remainder, each slicing all four graphs) and
+# at the 100k slide's rows in chunks of CAP_CHUNK (one chunk and a
+# 34816-row remainder); F12 is layers 1-2 at the canonical widths
+TAIL_PATCH_CHUNK = 2048
+TAIL_F12 = 40
 
 
 def log(msg: str) -> None:
@@ -2671,6 +2689,9 @@ def slice_phase(tmp: Path, device) -> dict:
     kernels += ladder.pop("kernels")
     slide_f32 = f32_phase(tmp, device, tmp / "model_SAGE.pt")
     paths.update(slide_f32.pop("paths"))
+    tail_kernels, tail_paths = tail_phase(device)
+    kernels += tail_kernels
+    paths.update(tail_paths)
     for entry in kernels:
         key = entry.pop("key")
         by_path = {name: paths[name][key] for name in entry.pop("paths")}
@@ -4034,6 +4055,139 @@ def f32_phase(tmp: Path, device, ckpt: Path) -> dict:
         f"{out['capacity_peak_gib']:.3f} GiB; phase wall "
         f"{out['wall_s']:.1f} s")
     return {"slide_f32": out, "paths": paths}
+
+
+def tail_per_call(rows: int, chunk: int) -> dict:
+    """B3/B4/B5 launches of one forward and backward of
+    ``assign_tail_train_chunked`` over ``rows`` rows in chunks of
+    ``chunk`` (``chunk_plan``: k chunks): B3 and B4 once in the forward,
+    then on each chunk B4 twice (phases A and B recompute S) and B5 once."""
+    from cgcnet_tpu_torch.ops.assign_head import chunk_plan
+
+    _, nfull, rem = chunk_plan(rows, chunk)
+    k = nfull + (1 if rem else 0)
+    return {"B3": 1, "B4": 1 + 2 * k, "B5": k}
+
+
+def tail_inputs(b: int, n: int, n_nodes: list, dt, device, seed: int = 11):
+    """Seeded operands of the chunked tail at [b, n] rows, C =
+    CANONICAL["C"], F12 = TAIL_F12: (x12, p, k12, k3, lin_bias, bn_scale,
+    bn_bias, n_nodes, n, dS), rows past n_nodes zero as the convs leave
+    them; x12, p and dS in ``dt``. The assign lin's kernel and bias at its
+    initialisation's scale (1 / sqrt(fan-in)), so the logits are of order
+    one, as a model's are: with unit-scale weights they reach ~10 and f32
+    S parts by 2e-5 between right computations."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = CANONICAL["C"]
+    lin = (TAIL_F12 + c) ** -0.5
+
+    def g(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=device) * sc
+
+    nn_ = torch.tensor(n_nodes, dtype=torch.int32, device=device)
+    rows = (torch.arange(n, device=device)[None] < nn_[:, None]).float()
+    return ((g(b, n, TAIL_F12) * rows[..., None]).to(dt),
+            (g(b, n, c) * rows[..., None]).to(dt), g(TAIL_F12, c, sc=lin),
+            g(c, c, sc=lin), g(c, sc=lin), 1.0 + g(c, sc=0.1),
+            g(c, sc=0.1), nn_, nn_.sum().float(), g(b, n, c).to(dt))
+
+
+def tail_call(args, chunk: int) -> tuple:
+    """One forward and backward of ``assign_tail_train_chunked``: (S,
+    mean, var, and the gradients of sum(S * dS) in x12, p, k12, k3,
+    lin_bias, bn_scale, bn_bias)."""
+    import torch
+    from cgcnet_tpu_torch.ops import assign_head as ah
+
+    *ops, n_nodes, n, ds = args
+    v = [t.detach().requires_grad_(True) for t in ops]
+    s, mean, var = ah.assign_tail_train_chunked(*v, n_nodes, n, 1e-5,
+                                                chunk_rows=chunk)
+    return (s.detach(), mean, var, *torch.autograd.grad(s, v, ds))
+
+
+# each output of the chunked tail at the rule of the kernel it comes from:
+# S B4's, the statistics B3's, every gradient B5's (the widest of the three)
+TAIL_RULE = ("B4", "B3", "B3", "B5", "B5", "B5", "B5", "B5", "B5", "B5")
+TAIL_OUTPUTS = ("S", "mean", "var", "dx12", "dp", "dk12", "dk3",
+                "dlin_bias", "dbn_scale", "dbn_bias")
+
+
+def tail_phase(device) -> tuple[list[dict], dict]:
+    """Phase 16 (see the module docstring). Returns its kernel-line
+    entries and the launch counts of its paths."""
+    import torch
+
+    log(f"phase 16: assign_tail_train_chunked vs its plain version "
+        f"({card_line()})")
+    b, n, c = CANONICAL["B"], CANONICAL["N"], CANONICAL["C"]
+    shapes = (("chunked_tail_patch", b, n, [n - 37 * i for i in range(b)],
+               TAIL_PATCH_CHUNK),
+              ("chunked_tail_slide", 1, SLIDE_CAP, [SLIDE_NUCLEI], CAP_CHUNK))
+    entries, paths = [], {}
+    for path, bb, rows, n_nodes, chunk in shapes:
+        paths[path] = dict.fromkeys([*KERNELS, "tail"], 0)
+        want = tail_per_call(rows, chunk)
+        for dt in (torch.float32, torch.bfloat16):
+            dt_name, tag, isz = _dtype_tag(dt)
+            args = tail_inputs(bb, rows, n_nodes, dt, device)
+            zero_counts()
+            got = tail_call(args, chunk)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if counts != {k: want.get(k, 0) for k in KERNELS}:
+                raise SystemExit(f"phase 16 {path} {tag}: launches {counts} "
+                                 f"!= {want}")
+            _add(paths[path], counts)
+            paths[path]["tail"] += sum(counts.values())
+            with sites_replaced(all_plain):
+                ref = tail_call(args, chunk)
+            errs = {}
+            for name, key, o, r in zip(TAIL_OUTPUTS, TAIL_RULE, got, ref):
+                err = (o.float() - r.float()).abs().max().item()
+                tol = TOL[(key, dt_name)] * r.float().abs().max().item()
+                errs[name] = err
+                if not err <= tol:
+                    raise SystemExit(f"phase 16 {path} {tag}: {name} "
+                                     f"{err:.3e} > {tol:.3e}")
+            ms = time_ms(lambda: tail_call(args, chunk), reps=10)
+            with sites_replaced(all_plain):
+                plain_ms = time_ms(lambda: tail_call(args, chunk), reps=3,
+                                   warmup=1)
+            rr = sum(n_nodes)
+            f12 = TAIL_F12
+            # each input read once (x12, p, dS on real rows; the [C]-sized
+            # operands), each output written once (S, dx12, dp; the [C]-sized
+            # gradients); the products the function needs once: the
+            # forward's logits, and the backward's dx12, dk12, dh, dk3f
+            bytes_ = (rr * (f12 + 2 * c) + bb * rows * (f12 + 2 * c)) * isz \
+                + 2 * (f12 * c + c * c + 3 * c) * 4
+            ops = 2 * rr * c * (3 * f12 + 3 * c)
+            t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS_PER_S[dt_name] * 1e3
+            entries.append({
+                "name": f"assign_tail_train_chunked (B3, B4, B5) {tag} "
+                        f"B={bb} N={rows} C={c} chunk={chunk}",
+                "route": "cuda",
+                "source": "cgcnet_tpu_torch/ops/assign_head.py",
+                "replaces": "cgcnet_tpu/ops/pallas/assign_head.py:687",
+                "launches": None, "max_abs_err": max(errs.values()),
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "key": "tail", "paths": (path,),
+                "launches_per_call": want, "max_abs_err_by_output": errs,
+            })
+            log(f"  {entries[-1]['name']}: launches {want} a call; "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; {ms:.3f} ms with the kernels, plain {plain_ms:.3f} ms, "
+                f"bound {entries[-1]['bound_ms']:.4f} ms "
+                f"({entries[-1]['bound_by']})")
+            del args, got, ref
+            torch.cuda.empty_cache()
+    return entries, paths
 
 
 # the kernels whose compiler report phase 2 must hold: the bf16

@@ -24,6 +24,18 @@ after 6 steps, 6e-5 after 11 and 2.8e-4 after 20, and the losses by
 parts there by 2.7e-5 after 20 steps). The step count is cut to 8 for
 that drift, not for a flip: at 8 steps lr 1e-4 every hold keeps the
 tolerances above with a margin of 2.5x or more.
+
+Past step 8 the trajectory is held against a witness of the exact one: the
+port's plain path run in float64 (the golden path runs no kernel; the
+package's f32 casts taken to float64 by ``Float64Mode``, which fails the
+run if any float32 tensor is made). At step LONG_STEPS (20) each f32
+trajectory — the port's and JAX's — must lie within twice the other's
+distance from the float64 one, plus the tolerances above: losses, then
+parameters and running statistics, each tensor by its max. Neither f32
+trajectory is the exact one, so neither is the yardstick of the other;
+one that computed another function would part from the float64 witness
+alone. The three trajectories are computed once per worker
+(``trajectories``) and read by both SGD tests.
 """
 
 import dataclasses
@@ -36,6 +48,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from flax.traverse_util import unflatten_dict
+from torch.overrides import TorchFunctionMode
 
 from cgcnet_tpu.config import TrainConfig as JaxTrainConfig
 from cgcnet_tpu.core.graph import CellGraph as JaxCellGraph
@@ -56,6 +69,8 @@ from test_parity_torch import compat_cfg
 GOLDEN = Path(__file__).parent / "golden" / "cgcnet_golden.npz"
 # SGD on the fixture (see the module docstring for the step count and rate)
 SGD_STEPS = 8
+# the float64 witness's step count (module docstring)
+LONG_STEPS = 20
 SGD = dict(optim="sgd", lr=1e-4, weight_decay=1e-4, momentum=0.9)
 LABELS = np.array([0, 2, 1], np.int32)  # the fixture has none; seeded choice
 
@@ -72,6 +87,12 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def golden():
+    return load_golden()
+
+
+def load_golden():
+    """(graph, variables, running statistics after the training forward,
+    training logits, eval logits) of the fixture."""
     z = np.load(GOLDEN)
     graph = {k: z[k] for k in ("x", "nbr", "nbr_mask", "n_nodes")}
     variables, stats_post = {}, {}
@@ -119,11 +140,72 @@ def test_golden_logits_and_running_stats(golden):
     np.testing.assert_allclose(out.numpy(), logits_eval, atol=2e-5, rtol=1e-4)
 
 
-def test_golden_sgd_steps_match_jax(golden):
-    """SGD_STEPS optimizer steps on the fixture through the port's
-    ``make_train_step`` and JAX's jitted ``make_train_step``: every step's
-    loss, then the parameters and running statistics."""
-    graph, variables, _, _, _ = golden
+class Float64Mode(TorchFunctionMode):
+    """Every float32 the port asks for (``.float()``, ``dtype=``, ``.to``)
+    taken as float64, under a float64 default dtype; a float32 result
+    fails the run (the witness is float64 throughout)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func is torch.Tensor.float:
+            func = torch.Tensor.double
+        args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+        if kwargs.get("dtype") is torch.float32:
+            kwargs["dtype"] = torch.float64
+        out = func(*args, **kwargs)
+        for o in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(o, torch.Tensor) and o.dtype == torch.float32:
+                raise AssertionError(f"{func} made a float32 tensor")
+        return out
+
+
+def _state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def port_trajectory(graph, variables, f64=False, steps=LONG_STEPS,
+                    adj_hook=None):
+    """The port's SGD on the fixture: (losses, state after SGD_STEPS,
+    state after ``steps``), in f32 or, with ``f64``, float64 throughout.
+    ``adj_hook`` (a witness's planted fault) rewrites the stage-1
+    adjacency."""
+    jcfg = compat_cfg()
+    state = create_train_state(
+        Config(model=ModelConfig(**dataclasses.asdict(jcfg)),
+               train=TrainConfig(**SGD)), "cpu")
+    state.model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    tg = _graph(graph, y=LABELS)
+    if f64:
+        state.model.double()
+        tg = dataclasses.replace(tg, x=tg.x.double(),
+                                 nbr_mask=tg.nbr_mask.double())
+    step = make_train_step()
+    make_adj = tmodel.make_stage1_adj
+    if adj_hook is not None:
+        tmodel.make_stage1_adj = lambda *a: adj_hook(make_adj(*a))
+    dtype = torch.get_default_dtype()
+    losses, mid = [], None
+    try:
+        for i in range(steps):
+            if f64:
+                torch.set_default_dtype(torch.float64)
+                with Float64Mode():
+                    m = step(state, tg)
+                torch.set_default_dtype(dtype)
+            else:
+                m = step(state, tg)
+            losses.append(float(m["loss"]))
+            if i + 1 == SGD_STEPS:
+                mid = _state(state.model)
+    finally:
+        torch.set_default_dtype(dtype)
+        tmodel.make_stage1_adj = make_adj
+    return np.array(losses), mid, _state(state.model)
+
+
+def jax_trajectory(graph, variables, steps=LONG_STEPS):
+    """JAX's jitted ``make_train_step`` on the fixture, f32: (losses, state
+    after SGD_STEPS, state after ``steps``) in the port's names."""
     jcfg = compat_cfg()
     net = jmodel.CGCNet(jcfg)
     tx = joptim.make_optimizer(JaxTrainConfig(**SGD), steps_per_epoch=100)
@@ -136,20 +218,69 @@ def test_golden_sgd_steps_match_jax(golden):
     jg = JaxCellGraph(**{k: jnp.asarray(v) for k, v in graph.items()},
                       y=jnp.asarray(LABELS))
     jstep = jax.jit(lambda s, g: jloop.make_train_step(net)(s, g, tx))
-    state = create_train_state(
-        Config(model=ModelConfig(**dataclasses.asdict(jcfg)),
-               train=TrainConfig(**SGD)), "cpu")
-    state.model.load_state_dict(state_dict_from_flax(variables), strict=True)
-    step = make_train_step()
-    tg = _graph(graph, y=LABELS)
-    for i in range(SGD_STEPS):
+    sd = lambda s: state_dict_from_flax({"params": s.params,
+                                         "batch_stats": s.batch_stats})
+    losses, mid = [], None
+    for i in range(steps):
         jstate, jm = jstep(jstate, jg)
-        m = step(state, tg)
-        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+        losses.append(float(jm["loss"]))
+        if i + 1 == SGD_STEPS:
+            mid = sd(jstate)
+    return np.array(losses), mid, sd(jstate)
+
+
+_TRAJ: dict = {}
+
+
+def trajectories(golden) -> dict:
+    """JAX's f32, the port's f32 and the port's float64 trajectories of
+    LONG_STEPS steps, once per worker."""
+    if not _TRAJ:
+        graph, variables, _, _, _ = golden
+        _TRAJ.update(jax=jax_trajectory(graph, variables),
+                     port=port_trajectory(graph, variables),
+                     f64=port_trajectory(graph, variables, f64=True))
+    return _TRAJ
+
+
+def spread_distances(t32, j32, t64) -> dict:
+    """{what: (the port's f32 distance from the float64 witness, JAX's,
+    the tolerance)} at the last step: the loss, then each parameter and
+    running statistic by its max."""
+    out = {"loss": (abs(t32[0][-1] - t64[0][-1]), abs(j32[0][-1] - t64[0][-1]),
+                    2e-5 + 1e-4 * abs(t64[0][-1]))}
+    for k, ref in t64[2].items():
+        r = ref.numpy()
+        out[k] = (float(np.abs(t32[2][k].double().numpy() - r).max()),
+                  float(np.abs(j32[2][k].numpy().astype(np.float64)
+                               - r).max()),
+                  5e-5 + 1e-4 * float(np.abs(r).max()))
+    return out
+
+
+def test_golden_sgd_steps_match_jax(golden):
+    """SGD_STEPS optimizer steps on the fixture through the port's
+    ``make_train_step`` and JAX's jitted ``make_train_step``: every step's
+    loss, then the parameters and running statistics."""
+    tr = trajectories(golden)
+    (t_loss, t_mid, _), (j_loss, ref, _) = tr["port"], tr["jax"]
+    for i in range(SGD_STEPS):
+        np.testing.assert_allclose(t_loss[i], j_loss[i],
                                    atol=2e-5, rtol=1e-4, err_msg=f"step {i}")
-    ref = state_dict_from_flax({"params": jstate.params,
-                                "batch_stats": jstate.batch_stats})
-    sd = state.model.state_dict()
     for k, r in ref.items():
-        np.testing.assert_allclose(sd[k].numpy(), r.numpy(), atol=5e-5,
+        np.testing.assert_allclose(t_mid[k].numpy(), r.numpy(), atol=5e-5,
                                    rtol=1e-4, err_msg=k)
+
+
+def test_golden_sgd_long_trajectory_within_twice_of_float64(golden):
+    """At step LONG_STEPS the port's and JAX's f32 trajectories each lie
+    within twice the other's distance from the port's float64 trajectory,
+    plus the tolerances (module docstring): the loss, every parameter and
+    every running statistic."""
+    tr = trajectories(golden)
+    assert tr["f64"][2]["pool1.bn3.running_mean"].dtype == torch.float64
+    dists = spread_distances(tr["port"], tr["jax"], tr["f64"])
+    assert set(dists) == {"loss", *tr["jax"][2]}
+    for what, (d_t, d_j, tol) in dists.items():
+        assert d_t <= 2.0 * d_j + tol, (what, d_t, d_j, tol)
+        assert d_j <= 2.0 * d_t + tol, (what, d_t, d_j, tol)

@@ -162,26 +162,35 @@ def _stats_sd(stats: dict) -> dict:
     return out
 
 
-def _jax_run(jcfg, variables, jinp, mesh, label, **fwd) -> dict:
+def _jax_run(jcfg, variables, jinp, mesh, label, x_moved=(), **fwd) -> dict:
     """JAX's eval logits, training loss, gradients and running statistics
-    (``j_*``), one jitted program."""
+    (``j_*``), one jitted program of the weights and the inputs; with
+    ``x_moved`` (features in ``jinp.x``'s layout) also the training loss
+    of the same program on each (``j_loss_moved``)."""
 
-    def both(v):
+    def both(v, inp):
         def jloss(params):
             logits, st = jmm.mega_forward(
                 {"params": params, "batch_stats": v["batch_stats"]}, jcfg,
-                jinp, mesh, train=True, return_stats=True, **fwd)
+                inp, mesh, train=True, return_stats=True, **fwd)
             return -jax.nn.log_softmax(logits)[label], st
 
-        ev = jmm.mega_forward(v, jcfg, jinp, mesh, train=False, **fwd)
+        ev = jmm.mega_forward(v, jcfg, inp, mesh, train=False, **fwd)
         return ev, jax.value_and_grad(jloss, has_aux=True)(v["params"])
 
-    j_eval, ((j_loss, j_stats), j_grads) = jax.jit(both)(variables)
-    return dict(
+    program = jax.jit(both)
+    j_eval, ((j_loss, j_stats), j_grads) = program(variables, jinp)
+    out = dict(
         j_eval=np.asarray(j_eval), j_loss=float(j_loss),
         j_grads=state_dict_from_flax({"params": jax.device_get(j_grads)}),
         j_stats=state_dict_from_flax({"batch_stats": jax.device_get(j_stats)}),
     )
+    if x_moved:
+        out["j_loss_moved"] = [
+            float(program(variables, jinp.replace(
+                x=jax.device_put(x, jinp.x.sharding)))[1][0][0])
+            for x in x_moved]
+    return out
 
 
 def _port_run(model, tcfg, tinp, label, **fwd) -> dict:

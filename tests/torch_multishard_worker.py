@@ -21,6 +21,7 @@ from cgcnet_tpu_torch.config import ModelConfig
 from cgcnet_tpu_torch.nn.model import CGCNet
 from cgcnet_tpu_torch.ops import assign_head as ah
 from cgcnet_tpu_torch.ops import bsr as tbsr
+from cgcnet_tpu_torch.ops import ell
 from cgcnet_tpu_torch.parallel import mega_graph as tmg
 from cgcnet_tpu_torch.parallel import mega_model as tmm
 from cgcnet_tpu_torch.parallel import mega_train as tmt
@@ -82,16 +83,38 @@ def _port_run(model, cfg, inp, label, eval_only=False, **fwd) -> dict:
     return out
 
 
+def planted_b2(fault: dict, inp: tmm.MegaInputs, axis: GraphAxis):
+    """B2 (``ops/ell.py``'s) with a planted fault on rank ``fault["rank"]``:
+    row ``fault["row"]`` (every row for None) of each output of its
+    ``fault["leg"]`` leg — the int8 blocks ``vals`` ("forward") or
+    ``vals_t`` ("transpose") — times ``fault["scale"]``. The planted-fault
+    witnesses' (scripts/spread_hold_witness.py)."""
+    orig = ell.bsr_matmul
+    leg = inp.vals if fault["leg"] == "forward" else inp.vals_t
+
+    def faulty(vals, *args, **kwargs):
+        out = orig(vals, *args, **kwargs)
+        if axis.rank == fault["rank"] and vals.data_ptr() == leg.data_ptr():
+            out = out.clone()
+            row = fault["row"]
+            out[..., slice(None) if row is None else row, :] *= fault["scale"]
+        return out
+    return faulty
+
+
 def model_case(case, axis: GraphAxis) -> dict:
     """The port's mega_forward on this rank's shard: the case's config and
     each port-only variant (config overrides, forward kwargs), and the
     facts of its tables (halo windows, hybrid transpose) and of its B8
-    calls (whether each passed halo windows)."""
+    calls (whether each passed halo windows); with a planted ``fault``,
+    through :func:`planted_b2`."""
     cfg, model = _model(case)
     inp = _inputs(case, axis)
     calls = []
     orig = (tbsr.bsr_matmul_banded_plain, ah.assign_tail_train_psum,
-            ah.assign_tail_train_chunked_lin)
+            ah.assign_tail_train_chunked_lin, ell.bsr_matmul)
+    if case.get("fault"):
+        ell.bsr_matmul = planted_b2(case["fault"], inp, axis)
 
     def counting(*a, **kw):
         # bsr_matmul_banded_plain(vals, blk_cols, win_base, x, ns_rows,
@@ -120,7 +143,7 @@ def model_case(case, axis: GraphAxis) -> dict:
                                   case["eval_only"], **fwd)
     finally:
         (tbsr.bsr_matmul_banded_plain, ah.assign_tail_train_psum,
-         ah.assign_tail_train_chunked_lin) = orig
+         ah.assign_tail_train_chunked_lin, ell.bsr_matmul) = orig
     res["b8_halo_window_calls"] = sum(calls)
     res["win_halo"] = inp.win_halo is not None
     return res
@@ -232,8 +255,38 @@ def cli_case(case, axis: GraphAxis) -> dict:
     return {k: res[k] for k in ("logits", "pred", "n", "cap", "bsr")}
 
 
+def tail_case(case, axis: GraphAxis) -> dict:
+    """``assign_tail_train_chunked`` on this rank's rows, the statistics
+    summed over the axis, at each of the case's chunks: S, mean, var and
+    the gradients of sum(S * ds) + sum(S^T * ds_t) in (x12, p, k12, k3,
+    lin_bias, bn_scale, bn_bias) — the parameters' as this rank's share,
+    ``None`` where the port gives none (n)."""
+    ns = case["x12"].shape[1] // axis.size
+    rows = slice(axis.rank * ns, (axis.rank + 1) * ns)
+    t = lambda a: torch.tensor(np.ascontiguousarray(a))
+    n_nodes = torch.tensor([min(max(case["n_real"] - rows.start, 0), ns)],
+                           dtype=torch.int32)
+    out = {}
+    for chunk in case["chunks"]:
+        v = [t(case["x12"][:, rows]), t(case["p"][:, rows])] + [
+            t(case[k]) for k in ("k12", "k3", "lb", "sc", "bi")]
+        n = torch.tensor(float(case["n_real"]))
+        for a in v + [n]:
+            a.requires_grad_(True)
+        s, mean, var = ah.assign_tail_train_chunked(
+            *v, n_nodes, n, 1e-5, axis=axis, chunk_rows=chunk)
+        loss = (s * t(case["ds"][:, rows])).sum() + (
+            s.transpose(1, 2) * t(case["ds_t"][:, :, rows])).sum()
+        grads = torch.autograd.grad(loss, v + [n], allow_unused=True)
+        out[chunk] = {"s": _np(s), "mean": _np(mean), "var": _np(var),
+                      "grads": [None if g is None else _np(g)
+                                for g in grads]}
+    return out
+
+
 KINDS = {"model": model_case, "steps": steps_case,
-         "collectives": collectives_case, "pool": pool_case, "cli": cli_case}
+         "collectives": collectives_case, "pool": pool_case, "cli": cli_case,
+         "tail": tail_case}
 
 
 def run(rank: int, world: int, init_file: str, job_path: str,
