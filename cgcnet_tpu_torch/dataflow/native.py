@@ -2,18 +2,30 @@
 
 The library is framework-neutral and shared with the JAX package: this is
 the PyTorch package's own binding of the same ``native/libcgraph.so``.
-Loads it if present (built by native/build.sh — attempted automatically
-once per process), otherwise every entry point reports unavailable and
-callers fall back to the NumPy implementations in cgcnet_tpu_torch.ops. The
-native path matters for whole-slide graphs (100k+ nuclei): grid-hash radius
-search is O(N·k) vs the O(N²) NumPy broadcast.
+Loads it, building it first by native/build.sh if it is missing (attempted
+once per process); where that fails, it warns once with the reason and
+every entry point reports unavailable, so callers fall back to the NumPy
+implementations in cgcnet_tpu_torch.ops. The native path matters for
+whole-slide graphs (100k+ nuclei): grid-hash radius search is O(N·k) vs
+the O(N²) NumPy broadcast.
+
+Ranks and test workers start together, so the build is shared between
+processes: under a lock file in ``build/`` the first process builds the
+library in a private directory there and moves it onto its path with
+``os.replace``. No process, of either package, ever sees a half-written
+``libcgraph.so``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
+import shutil
 import subprocess
+import tempfile
 import threading
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -22,11 +34,51 @@ _LIB = None
 _TRIED = False
 _SO = Path(__file__).resolve().parent.parent.parent / "native" / "libcgraph.so"
 _LOAD_LOCK = threading.Lock()
+BUILD_TIMEOUT = 120  # seconds for one run of build.sh
+
+
+def _build(so: Path, work: Path) -> None:
+    """Compile ``so`` from the build.sh and cgraph.cpp beside it in a
+    private directory under ``work`` and move the result onto ``so``."""
+    tmp = Path(tempfile.mkdtemp(prefix="native-", dir=work))
+    try:
+        for name in ("build.sh", "cgraph.cpp"):
+            shutil.copy2(so.parent / name, tmp / name)
+        proc = subprocess.run(
+            ["sh", str(tmp / "build.sh")], capture_output=True, text=True,
+            timeout=BUILD_TIMEOUT,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"build.sh exited with {proc.returncode}: "
+                f"{proc.stderr.strip() or proc.stdout.strip()}"
+            )
+        os.replace(tmp / "libcgraph.so", so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def build_and_load(so: Path) -> ctypes.CDLL:
+    """Load the library at ``so`` (``<root>/native/libcgraph.so``), building
+    it first if it is missing. The check and the build run under an
+    exclusive lock on ``<root>/build/native.lock``, so concurrent processes
+    build it once and load the same file. Raises on a failed build or
+    load."""
+    so = Path(so)
+    work = so.parent.parent / "build"
+    work.mkdir(parents=True, exist_ok=True)
+    with open(work / "native.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            _build(so, work)
+        lib = ctypes.CDLL(str(so))
+    _declare(lib)
+    return lib
 
 
 def _load():
     # double-checked lock: GraphLoader worker threads may race on first use,
-    # and the slow path can spawn a g++ build — run it exactly once
+    # and the slow path can run a g++ build — try it exactly once
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
@@ -39,21 +91,18 @@ def _load_locked():
     if _TRIED:
         return _LIB
     _TRIED = True
-    if not _SO.exists():
-        build = _SO.parent / "build.sh"
-        if build.exists():
-            try:
-                subprocess.run(
-                    ["sh", str(build)], capture_output=True, timeout=120, check=True
-                )
-            except (OSError, subprocess.SubprocessError):
-                return None
-    if not _SO.exists():
-        return None
     try:
-        lib = ctypes.CDLL(str(_SO))
-    except OSError:
-        return None
+        _LIB = build_and_load(_SO)
+    except (OSError, AttributeError, RuntimeError,
+            subprocess.SubprocessError) as e:
+        warnings.warn(
+            f"native graph library {_SO} unavailable, the NumPy paths serve: "
+            f"{e}", RuntimeWarning, stacklevel=4,
+        )
+    return _LIB
+
+
+def _declare(lib: ctypes.CDLL) -> None:
     i64, i32p, f32p = (
         ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int32),
@@ -87,8 +136,6 @@ def _load_locked():
         ctypes.POINTER(ctypes.c_uint8), i64, i64, ctypes.c_int, f32p,
     ]
     lib.local_entropy_u8.restype = ctypes.c_int
-    _LIB = lib
-    return _LIB
 
 
 def available() -> bool:

@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-Phases, each fatal on failure (exit code != 0):
+Phases, each fatal on failure (exit code != 0), after the native graph
+library (``native/libcgraph.so``, built if missing) is loaded through the
+port's binding — the script exits non-zero with the reason when it is not:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build of the hand-written kernels from ``cgcnet_tpu_torch/csrc`` (nvcc),
@@ -229,6 +231,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -4240,6 +4243,22 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # the slide phases (100k-1M nuclei) build their graphs natively: the
+    # NumPy fallback's dense [N, N, 2] differences cannot hold them
+    from cgcnet_tpu_torch.dataflow import native
+
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        loaded = native.available()
+    if not loaded:
+        why = "; ".join(str(w.message) for w in caught) or "no reason given"
+        print(f"chip_smoke: the native graph library did not load: {why}",
+              file=sys.stderr)
+        return 2
+    log(f"native graph library: {native._SO.relative_to(REPO)} loaded in "
+        f"{time.time() - t0:.1f} s")
 
     log("phase 1: device")
     smi = card_line()

@@ -19,7 +19,6 @@ D = 2 gloo ranks on the CPU (``tests/torch_data_parallel_worker.py``):
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp_mp
 from torch.distributed.tensor import Replicate, Shard
 
 from cgcnet_tpu_torch.config import Config
@@ -28,7 +27,7 @@ from cgcnet_tpu_torch.train.loop import make_train_step
 from cgcnet_tpu_torch.train.state import create_train_state
 
 import torch_data_parallel_worker as worker
-from torch_port_util import example_batch
+from torch_port_util import example_batch, run_ranks
 
 D = 2
 TRAIN_OVER = ["model.hidden_dim=8", "model.embedding_dim=8",
@@ -37,6 +36,9 @@ TRAIN_OVER = ["model.hidden_dim=8", "model.embedding_dim=8",
 LOSS_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 STATS_TOL = dict(atol=1e-5, rtol=1e-4)
+# seconds from the spawn to the last rank's exit (tests/torch_port_util.py's
+# RankGroup): at least 3x the slowest the spawn took in a whole test run
+RANKS_LIMIT = 120
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -69,10 +71,8 @@ def ranks(tmp_path_factory, batch):
     job = [dict(name="sharded", kind="sharded", root=str(root), **_state(),
                 train=dict(over=TRAIN_OVER, batch=batch))]
     torch.save(job, root / "job.pt")
-    tmp_mp.start_processes(
-        worker.run, args=(D, str(root / "init"), str(root / "job.pt"),
-                          str(out)),
-        nprocs=D, join=True, start_method="spawn")
+    run_ranks(worker.run, (D, str(root / "init"), str(root / "job.pt"),
+                           str(out)), D, root / "logs", RANKS_LIMIT)
     return root, [torch.load(out / f"rank{r}.pt", weights_only=False)
                   ["sharded"] for r in range(D)]
 

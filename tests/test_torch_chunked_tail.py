@@ -21,7 +21,6 @@ none.
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp_mp
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +30,7 @@ import cgcnet_tpu.ops.pallas.assign_head as jah
 from cgcnet_tpu_torch.ops import assign_head as tah
 
 import torch_multishard_worker as worker
+from torch_port_util import RankGroup
 
 B, N, C, F12, REAL = 1, 512, 36, 8, 400
 CHUNKS = (128, 384)
@@ -38,6 +38,9 @@ C_OUT = 128  # S lane-padded as the slide path's tail emits it
 NAMES = ("x12", "p", "k12", "k3", "lb", "sc", "bi")
 FWD_TOL = dict(atol=1e-6, rtol=0.0)
 GRAD_TOL = dict(atol=5e-5, rtol=1e-4)
+# seconds from the spawn to the last rank's exit (tests/torch_port_util.py's
+# RankGroup): at least 3x the slowest the spawn took in a whole test run
+RANKS_LIMIT = 120
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -76,26 +79,22 @@ def ranks(tmp_path_factory):
     job = [dict(name="tail", kind="tail", n_real=REAL, chunks=CHUNKS,
                 **tail_inputs())]
     torch.save(job, root / "job.pt")
-    ctx = tmp_mp.start_processes(
-        worker.run, args=(2, str(root / "init"), str(root / "job.pt"),
-                          str(root / "out")),
-        nprocs=2, join=False, start_method="spawn")
+    group = RankGroup(
+        worker.run, (2, str(root / "init"), str(root / "job.pt"),
+                     str(root / "out")),
+        2, root / "logs", limit=RANKS_LIMIT)
     res = []
 
     def results():
         if not res:
-            while not ctx.join(timeout=300):
-                pass
+            group.join()
             res.extend(torch.load(root / "out" / f"rank{r}.pt",
                                   weights_only=False)["tail"]
                        for r in range(2))
         return res
 
     yield results
-    for proc in ctx.processes:
-        if proc.is_alive():
-            proc.terminate()
-            proc.join()
+    group.close()
 
 
 def _mask():

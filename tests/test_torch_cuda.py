@@ -1306,6 +1306,12 @@ def test_banded_gather_matches_plain(device, f, dtype, kind):
 # the graph axis: two ranks sharing the one card
 # ---------------------------------------------------------------------------
 
+# seconds from a spawn of ranks on the card to the last rank's exit
+# (tests/torch_port_util.py's RankGroup): at least 3x the slowest the
+# spawn took on the card
+CARD_RANKS_LIMIT = 120
+
+
 def test_graph_axis_two_ranks_one_card(device, tmp_path):
     """Two ranks on one card, over gloo by the backend rule (NCCL refuses
     two ranks on one device), their collectives staged through pinned host
@@ -1313,15 +1319,14 @@ def test_graph_axis_two_ranks_one_card(device, tmp_path):
     all_gather of CUDA tensors, each against its CPU form bit for bit (the
     halo rows gathered from the whole graph; the sums of the ranks' parts
     in rank order)."""
-    import torch.multiprocessing as mp
-
     import torch_multishard_worker as worker
     from cgcnet_tpu_torch.parallel.mega_graph import partition_graph
+    from torch_port_util import run_ranks
 
     world = 2
-    mp.start_processes(worker.card_collectives,
-                       args=(world, str(tmp_path / "init"), str(tmp_path)),
-                       nprocs=world, join=True, start_method="spawn")
+    run_ranks(worker.card_collectives,
+              (world, str(tmp_path / "init"), str(tmp_path)), world,
+              tmp_path / "logs", CARD_RANKS_LIMIT)
     job = worker.card_job(world)
     part = partition_graph(job["nbr"], job["mask"], world)
     ns = job["x"].shape[0] // world
@@ -1362,19 +1367,17 @@ def test_data_axis_two_ranks_one_card(device, tmp_path):
     1e-3 (chip_smoke.py's card-vs-CPU loss rule: f32 sums in another
     order), the gradients at 1e-3 of each tensor's max|grad| plus 1e-5 of
     the model's largest (its gradient rule)."""
-    import torch.multiprocessing as mp
-
     import torch_data_parallel_worker as worker
     from cgcnet_tpu_torch.parallel.dryrun import counted, example_batch
     from cgcnet_tpu_torch.train.loop import make_train_step
+    from torch_port_util import run_ranks
 
     batch = example_batch(4, cap=256, seed=2)
     case = dict(name="dp", kind="steps", over=DP_OVER, batch=batch, steps=2)
     torch.save([case], tmp_path / "job.pt")
-    mp.start_processes(worker.run, args=(2, str(tmp_path / "init"),
-                                         str(tmp_path / "job.pt"),
-                                         str(tmp_path), False),
-                       nprocs=2, join=True, start_method="spawn")
+    run_ranks(worker.run, (2, str(tmp_path / "init"),
+                           str(tmp_path / "job.pt"), str(tmp_path), False),
+              2, tmp_path / "logs", CARD_RANKS_LIMIT)
     r0, r1 = (torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
               for r in range(2))
     assert r0["axis"]["backend"] == "gloo"
@@ -1410,22 +1413,21 @@ def test_sharded_checkpoint_two_ranks_one_card(device, tmp_path):
     of two ranks sharing the card (``DeviceMesh.from_group``): the layout
     round-trips, loads replicated at D = 2 and into CPU tensors of one
     process, and a training state saved at D = 2 reloads bit for bit."""
-    import torch.multiprocessing as mp
     from torch.distributed.tensor import Replicate, Shard
 
     import torch_data_parallel_worker as worker
     from cgcnet_tpu_torch.parallel.dryrun import example_batch
     from cgcnet_tpu_torch.train import checkpoint_sharded as cs
+    from torch_port_util import run_ranks
 
     x = np.arange(8 * 16, dtype=np.float32).reshape(8, 16)
     w = np.linspace(0, 1, 24, dtype=np.float32)
     train = dict(over=DP_OVER, batch=example_batch(4, cap=256, seed=3))
     torch.save([dict(name="sharded", kind="sharded", root=str(tmp_path), x=x,
                      w=w, train=train)], tmp_path / "job.pt")
-    mp.start_processes(worker.run, args=(2, str(tmp_path / "init"),
-                                         str(tmp_path / "job.pt"),
-                                         str(tmp_path), False),
-                       nprocs=2, join=True, start_method="spawn")
+    run_ranks(worker.run, (2, str(tmp_path / "init"),
+                           str(tmp_path / "job.pt"), str(tmp_path), False),
+              2, tmp_path / "logs", CARD_RANKS_LIMIT)
     for r in range(2):
         got = torch.load(tmp_path / f"rank{r}.pt",
                          weights_only=False)["sharded"]

@@ -27,7 +27,6 @@ import socket
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp_mp
 
 import jax
 import jax.numpy as jnp
@@ -57,7 +56,9 @@ from cgcnet_tpu_torch.train.loop import make_train_step
 from cgcnet_tpu_torch.train.state import create_train_state
 
 import torch_data_parallel_worker as worker
-from torch_port_util import SMALL_MODEL, example_batch, jax_graph, random_tree
+from torch_port_util import (
+    SMALL_MODEL, RankGroup, example_batch, jax_graph, random_tree,
+)
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs 4 virtual devices"
@@ -71,6 +72,9 @@ OVER = ["train.optim=sgd", "train.lr=1e-3", "train.weight_decay=1e-4",
 LOSS_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 STATS_TOL = dict(atol=1e-5, rtol=1e-4)
+# seconds from the spawn to the last rank's exit (tests/torch_port_util.py's
+# RankGroup): at least 3x the slowest the spawn took in a whole test run
+RANKS_LIMIT = 120
 # the process-sharded loader's dataset (tests/test_multihost.py's)
 LOADER_OVER = ["data.max_num_nodes=256", "data.sample_ratio=1.0",
                "data.num_workers=1", "model.max_num_nodes=256",
@@ -120,26 +124,22 @@ class Ranks:
         self.out = root / "out"
         self.out.mkdir()
         torch.save(job, root / "job.pt")
-        self.ctx = tmp_mp.start_processes(
-            worker.run, args=(D, init, str(root / "job.pt"), str(self.out)),
-            nprocs=D, join=False, start_method="spawn")
+        self.group = RankGroup(
+            worker.run, (D, init, str(root / "job.pt"), str(self.out)), D,
+            root / "logs", limit=RANKS_LIMIT)
         self._res = None
 
     def results(self) -> list:
         """Every rank's results (joins the ranks; a rank's failure raises
         with its traceback and ends the others)."""
         if self._res is None:
-            while not self.ctx.join(timeout=600):
-                pass
+            self.group.join()
             self._res = [torch.load(self.out / f"rank{r}.pt",
                                     weights_only=False) for r in range(D)]
         return self._res
 
     def close(self) -> None:
-        for proc in self.ctx.processes:
-            if proc.is_alive():
-                proc.terminate()
-                proc.join()
+        self.group.close()
 
 
 @pytest.fixture(scope="module")

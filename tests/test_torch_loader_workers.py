@@ -19,7 +19,6 @@ import socket
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp_mp
 
 from cgcnet_tpu.config import Config as JaxConfig
 from cgcnet_tpu.dataflow.dataset import NucleiGraphDataset as JaxDataset
@@ -32,6 +31,7 @@ from cgcnet_tpu_torch.train.loop import make_train_step
 from cgcnet_tpu_torch.train.state import create_train_state
 
 import torch_data_parallel_worker as worker
+from torch_port_util import RankGroup
 
 FIELDS = ("x", "nbr", "nbr_mask", "nbr_t", "nbr_t_mask", "n_nodes", "y",
           "patch_idx", "blk_cols", "blk_mask", "blk_cols_t", "blk_mask_t")
@@ -62,6 +62,9 @@ COMMON = ["data.min_nodes_no_subsample=50", "data.bsr_blocks=16"]
 D = 2
 DP_BATCH, DP_SEED, DP_STEPS = 4, SEED, 3
 DP_WORKERS = (1, 4, 1, 4)
+# seconds from the spawn to the last rank's exit (tests/torch_port_util.py's
+# RankGroup): at least 3x the slowest the spawn took in a whole test run
+RANKS_LIMIT = 120
 MODEL_OVER = ["model.max_num_nodes=512", "model.hidden_dim=8",
               "model.embedding_dim=8", "model.assign_hidden_dim=8",
               "model.drop_out=0.0", "train.optim=sgd", "train.lr=1e-3"]
@@ -204,24 +207,20 @@ class Ranks:
                          over=_dp_over(roots, "overflow"),
                          batch_size=DP_BATCH, seed=DP_SEED, steps=DP_STEPS,
                          workers=DP_WORKERS)], root / "job.pt")
-        self.ctx = tmp_mp.start_processes(
-            worker.run, args=(D, f"tcp:localhost:{_free_port()}",
-                              str(root / "job.pt"), str(self.out)),
-            nprocs=D, join=False, start_method="spawn")
+        self.group = RankGroup(
+            worker.run, (D, f"tcp:localhost:{_free_port()}",
+                         str(root / "job.pt"), str(self.out)),
+            D, root / "logs", limit=RANKS_LIMIT)
 
     def results(self) -> list:
         """Each rank's runs (joins the ranks; a rank's failure raises with
         its traceback and ends the other)."""
-        while not self.ctx.join(timeout=300):
-            pass
+        self.group.join()
         return [torch.load(self.out / f"rank{r}.pt",
                            weights_only=False)["workers"] for r in range(D)]
 
     def close(self) -> None:
-        for proc in self.ctx.processes:
-            if proc.is_alive():
-                proc.terminate()
-                proc.join()
+        self.group.close()
 
 
 @pytest.fixture(scope="module")

@@ -26,7 +26,6 @@ slide gradient is wrong for ``jk1.*`` / ``embed1.*`` with ``jk`` on
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as tmp_mp
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +47,7 @@ from cgcnet_tpu_torch.parallel import mega_graph as tmg
 from cgcnet_tpu_torch.parallel.mesh import backend_for, rank_device
 
 import torch_multishard_worker as worker
+from torch_port_util import RankGroup
 from test_torch_slide_bf16 import no_worse
 from test_torch_slide_cli import OVERRIDES as CLI_OVERRIDES
 from test_torch_slide_cli import jax_weights  # noqa: F401 (a fixture)
@@ -86,6 +86,9 @@ CLI_NUCLEI = 1500
 # Under such moves the loss takes one of two values in either package
 # (PERF.md §7), so a single draw would judge by one of them
 ULP_DRAWS = 4
+# seconds from the spawn to the last rank's exit (tests/torch_port_util.py's
+# RankGroup): at least 3x the slowest the spawn took in a whole test run
+RANKS_LIMIT = 180
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -225,18 +228,17 @@ class Ranks:
         self.out.mkdir()
         self.job = jobs(d, ckpt)
         torch.save(self.job, root / f"job{d}.pt")
-        self.ctx = tmp_mp.start_processes(
-            worker.run, args=(d, str(root / f"init{d}"),
-                              str(root / f"job{d}.pt"), str(self.out)),
-            nprocs=d, join=False, start_method="spawn")
+        self.group = RankGroup(
+            worker.run, (d, str(root / f"init{d}"), str(root / f"job{d}.pt"),
+                         str(self.out)),
+            d, root / f"logs{d}", limit=RANKS_LIMIT)
         self._res = None
 
     def results(self) -> list:
         """Every rank's results (joins the ranks; a rank's failure raises
         with its traceback and ends the others)."""
         if self._res is None:
-            while not self.ctx.join(timeout=600):
-                pass
+            self.group.join()
             self._res = [torch.load(self.out / f"rank{r}.pt",
                                     weights_only=False)
                          for r in range(self.d)]
@@ -247,10 +249,7 @@ class Ranks:
 
     def close(self) -> None:
         """End ranks no test joined (a run of some of the tests)."""
-        for proc in self.ctx.processes:
-            if proc.is_alive():
-                proc.terminate()
-                proc.join()
+        self.group.close()
 
 
 @pytest.fixture(scope="module")

@@ -2,11 +2,16 @@
 
 Every input is made from a numpy seed and handed to both packages as numpy
 arrays: the JAX reference gets jnp arrays, the port gets CPU tensors.
+Ranks spawned by the port's tests start and join through ``RankGroup``.
 """
 
 from __future__ import annotations
 
+import faulthandler
+import os
+import signal
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -14,6 +19,16 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
+
+# The shared library native/libcgraph.so is built once, before any test
+# runs: several test_torch_* modules import this one at module level, so
+# every xdist worker makes this call while it collects, and no worker gets
+# a test before all have collected. The port's binding builds under a lock
+# between processes and moves the finished file into place, so the JAX
+# package's binding later finds it whole and only loads it.
+from cgcnet_tpu_torch.dataflow import native as _native  # noqa: E402
+
+_native.available()
 
 GRAPH_FIELDS = (
     "x", "nbr", "nbr_mask", "n_nodes", "y", "nbr_t", "nbr_t_mask",
@@ -86,3 +101,119 @@ def stage1_weights(batch: dict, self_weight: float = 0.4) -> np.ndarray:
     return (
         scale[..., None] * off + (self_weight * valid)[..., None] * is_self
     ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# spawned ranks, joined within a limit
+# ---------------------------------------------------------------------------
+
+TAIL_LINES = 30  # lines of a rank's log quoted when it fails
+
+
+def _logged_rank(rank: int, fn, logs: str, *args) -> None:
+    """Run ``fn(rank, *args)`` with this rank's stdout and stderr in
+    ``logs/rank{rank}.log``; SIGUSR1 writes its threads' stacks there."""
+    log = open(Path(logs) / f"rank{rank}.log", "w")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.register(signal.SIGUSR1, file=log, all_threads=True)
+    fn(rank, *args)
+    (Path(logs) / f"rank{rank}.done").write_text(f"{time.monotonic()}\n")
+
+
+def log_tail(logs: Path, rank: int, lines: int = TAIL_LINES) -> str:
+    path = Path(logs) / f"rank{rank}.log"
+    if not path.exists():
+        return "(no log)"
+    text = path.read_text(errors="replace").rstrip().splitlines()
+    return "\n".join(text[-lines:]) or "(empty log)"
+
+
+class RankGroup:
+    """``nprocs`` spawned ranks of ``fn(rank, *args)``, each writing its
+    stdout and stderr to ``logs/rank{r}.log``, joined within ``limit``
+    seconds of their start.
+
+    ``join()`` returns once every rank has exited cleanly; a rank that
+    raised or died raises as ``ProcessContext.join`` does (the other ranks
+    are ended). At the limit it ends the ranks still alive and fails the
+    test, naming them and quoting what each last wrote. ``logs/joined_s``
+    gets the seconds from the spawn to the last rank's exit and to the
+    join."""
+
+    def __init__(self, fn, args: tuple, nprocs: int, logs: Path,
+                 limit: float):
+        import torch.multiprocessing as tmp_mp
+
+        self.logs, self.limit = Path(logs), float(limit)
+        self.logs.mkdir(parents=True, exist_ok=True)
+        self.t0 = time.monotonic()
+        self.ctx = tmp_mp.start_processes(
+            _logged_rank, args=(fn, str(self.logs), *args), nprocs=nprocs,
+            join=False, start_method="spawn")
+        self.joined = False
+
+    def join(self) -> None:
+        if self.joined:
+            return
+        from torch.multiprocessing.spawn import ProcessException
+
+        deadline = self.t0 + self.limit
+        try:
+            while not self.ctx.join(
+                    timeout=max(0.05, min(5.0, deadline - time.monotonic()))):
+                if time.monotonic() >= deadline:
+                    self._fail_late()
+        except ProcessException:
+            print(self._tails(range(len(self.ctx.processes))),
+                  file=sys.stderr)
+            raise
+        self.joined = True
+        done = max(float((self.logs / f"rank{r}.done").read_text())
+                   for r in range(len(self.ctx.processes)))
+        (self.logs / "joined_s").write_text(
+            f"{done - self.t0:.1f} {time.monotonic() - self.t0:.1f}\n")
+
+    def _tails(self, ranks) -> str:
+        return "\n".join(f"--- rank {r} last wrote:\n"
+                         f"{log_tail(self.logs, r)}" for r in ranks)
+
+    def _fail_late(self) -> None:
+        import pytest
+
+        late = [r for r, p in enumerate(self.ctx.processes) if p.is_alive()]
+        for r in late:
+            try:
+                os.kill(self.ctx.processes[r].pid, signal.SIGUSR1)
+            except OSError:
+                pass
+        time.sleep(0.5)
+        tails = self._tails(late)
+        self.close()
+        pytest.fail(
+            f"rank{'s' if len(late) > 1 else ''} "
+            f"{', '.join(map(str, late))} of {len(self.ctx.processes)} "
+            f"still running {self.limit:.0f} s after the spawn; ended.\n"
+            f"{tails}", pytrace=False)
+
+    def close(self) -> None:
+        """End ranks still alive (no test joined them, or one was late)."""
+        for proc in self.ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+        for proc in self.ctx.processes:
+            proc.join(5)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def run_ranks(fn, args: tuple, nprocs: int, logs: Path, limit: float) -> None:
+    """Spawn the ranks of ``fn(rank, *args)`` and join them within
+    ``limit`` seconds (``RankGroup``)."""
+    group = RankGroup(fn, args, nprocs, logs, limit)
+    try:
+        group.join()
+    finally:
+        group.close()
